@@ -1,0 +1,97 @@
+"""The port stands alone: tidb_tpu_torch imports neither jax nor
+tidb_tpu (by AST scan and by sys.modules after a CPU Q1 run in a fresh
+process), and its entry points run on CUDA unless told otherwise, raising
+where there is none instead of quietly running on the CPU."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+# one intra-op thread: these tests share the CPU with parallel test workers
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "tidb_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "tidb_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix()
+                                        for p in PKG.rglob("*.py")))
+def test_no_forbidden_import(path):
+    bad = [m for m in _imports(ROOT / path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_chip_smoke_imports_no_jax():
+    bad = [m for m in _imports(ROOT / "chip_smoke.py") if _forbidden(m)]
+    assert not bad
+
+
+_PROBE = """
+import json, sys
+from tidb_tpu_torch.executor.agg import run_q1
+from tidb_tpu_torch.benchmarks import tpch
+d = tpch.ScaledTpch(0.002, 7)
+res = run_q1(device="cpu", chunks=tpch.lineitem_chunks(d, 4096),
+             superchunk_rows=4096)
+assert res.rows == tpch.q1_truth(d), res.rows
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))))
+"""
+
+
+def test_cpu_q1_loads_no_jax_module():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+
+
+def test_entry_points_default_to_cuda():
+    _no_cuda()
+    from tidb_tpu_torch.benchmarks import tpch
+    from tidb_tpu_torch.chunk import Chunk
+    from tidb_tpu_torch.executor.agg import run_agg, run_q1
+    from tidb_tpu_torch.ops import hashagg, runtime
+    flt, group_exprs, aggs = tpch.q1_plan()
+    ch = tpch.lineitem_chunks(tpch.ScaledTpch(0.002, 1), 4096)[0]
+    calls = [
+        lambda: run_q1(sf=0.002),
+        lambda: run_agg([ch], flt, group_exprs, aggs),
+        lambda: hashagg.kernel_for(flt, group_exprs, aggs),
+        lambda: hashagg.HashAggKernel(flt, group_exprs, aggs),
+        lambda: hashagg.ScalarAggKernel(flt, aggs),
+        lambda: runtime.device_put_chunk(ch),
+        lambda: runtime.device_put_chunk(Chunk(ch.columns), device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

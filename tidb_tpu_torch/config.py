@@ -1,0 +1,140 @@
+"""The sysvars the port's kernels read.
+
+A subset of the JAX package's registry, with the same names, types and
+defaults, so one setting means the same thing in both packages. Values
+come from the defaults, then from the environment (TIDB_TPU_SUPERCHUNK_ROWS
+and so on), then from `set_var`; `session_overlay` shadows them on one
+thread for a statement's duration.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+__all__ = ["get_var", "set_var", "session_overlay", "device_min_rows",
+           "superchunk_rows", "pipeline_depth", "fused_scan_enabled",
+           "encoded_exec_enabled", "fuse_fragments_enabled",
+           "direct_agg_slots", "UnknownVariableError"]
+
+
+class UnknownVariableError(Exception):
+    pass
+
+
+_BOOL, _INT = "bool", "int"
+
+_DEFS: dict[str, tuple[str, int]] = {
+    # min chunk rows before an executor pays a device dispatch
+    "tidb_tpu_device_min_rows": (_INT, 2048),
+    # rows per coalesced device batch (ops/runtime.superchunk_batches); a
+    # power of two keeps every full superchunk on one bucket shape
+    "tidb_tpu_superchunk_rows": (_INT, 1 << 18),
+    # dispatch-ahead window of the device pipeline (2 = double buffering)
+    "tidb_tpu_pipeline_depth": (_INT, 2),
+    # fused scan->filter->partial-agg over device-resident blocks
+    "tidb_tpu_fused_scan": (_BOOL, 1),
+    # operate on dictionary codes end to end
+    "tidb_tpu_encoded_exec": (_BOOL, 1),
+    # one program per pipeline fragment
+    "tidb_tpu_fuse_fragments": (_BOOL, 1),
+    # cardinality bound of the direct-indexed partial-agg table; past it
+    # the group-by degrades to the packed-sort hash table
+    "tidb_tpu_direct_agg_slots": (_INT, 4096),
+}
+
+_vals: dict[str, int] = {}
+_lock = threading.Lock()
+_tls = threading.local()
+
+
+def _coerce(tp: str, value) -> int:
+    if isinstance(value, str):
+        v = value.strip().lower()
+        if tp == _BOOL and v in ("on", "true"):
+            return 1
+        if tp == _BOOL and v in ("off", "false"):
+            return 0
+        value = int(v)
+    iv = int(value)
+    return (1 if iv else 0) if tp == _BOOL else iv
+
+
+def _init() -> None:
+    for name, (tp, dflt) in _DEFS.items():
+        env = os.environ.get(name.upper())
+        _vals[name] = dflt if env is None else _coerce(tp, env)
+
+
+_init()
+
+
+def _read(key: str) -> int:
+    ov = getattr(_tls, "overlay", None)
+    if ov is not None and key in ov:
+        return ov[key]
+    return _vals[key]
+
+
+class session_overlay:
+    """Shadow registry values on THIS thread for a statement's duration.
+    Nests: inner overlays win, outers restore."""
+
+    def __init__(self, vars: dict):
+        self.vars = {k.lower(): _coerce(_DEFS[k.lower()][0], v)
+                     for k, v in vars.items() if k.lower() in _DEFS}
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "overlay", None)
+        merged = dict(self._prev) if self._prev else {}
+        merged.update(self.vars)
+        _tls.overlay = merged
+        return self
+
+    def __exit__(self, *exc):
+        _tls.overlay = self._prev
+        return False
+
+
+def get_var(name: str) -> int:
+    key = name.lower()
+    if key not in _DEFS:
+        raise UnknownVariableError(name)
+    return _read(key)
+
+
+def set_var(name: str, value) -> None:
+    key = name.lower()
+    if key not in _DEFS:
+        raise UnknownVariableError(name)
+    with _lock:
+        _vals[key] = _coerce(_DEFS[key][0], value)
+
+
+def device_min_rows() -> int:
+    return _read("tidb_tpu_device_min_rows")
+
+
+def superchunk_rows() -> int:
+    return _read("tidb_tpu_superchunk_rows")
+
+
+def pipeline_depth() -> int:
+    return _read("tidb_tpu_pipeline_depth")
+
+
+def fused_scan_enabled() -> bool:
+    return bool(_read("tidb_tpu_fused_scan"))
+
+
+def encoded_exec_enabled() -> bool:
+    return bool(_read("tidb_tpu_encoded_exec"))
+
+
+def fuse_fragments_enabled() -> bool:
+    return bool(_read("tidb_tpu_fuse_fragments"))
+
+
+def direct_agg_slots() -> int:
+    return _read("tidb_tpu_direct_agg_slots")
