@@ -4,10 +4,15 @@
 
 Phases, one JSON line each:
   env     torch and CUDA versions, the card's name and power limit
-  build   builds every hand-written kernel from the sources in the repo
+  build   builds every hand-written kernel from the sources in the repo,
+          with ptxas's registers and spills per variant and the atomic
+          instructions of the SASS
   kernel  each kernel against its plain torch version on the card, over
-          dtypes, masks and shapes, then its time at the main path's shape
-          beside the plain version, one PyTorch library call, and the bound
+          dtypes, masks and shapes, then its device time at the main
+          path's shapes (tidb_tpu_torch/benchmarks/segsum_bench.py: Q1's
+          own calls, and the same calls with spread ids) beside its host
+          time per call, the plain version, one PyTorch library call and
+          the bound
   q1      TPC-H Q1's aggregation (tidb_tpu_torch.executor.agg.run_q1) at
           scale factor --sf, cold (with transfers) and hot (columns resident
           on the card), each held exactly against a numpy truth; the
@@ -32,29 +37,9 @@ import time
 import numpy as np
 import torch
 
-H100_BYTES_PER_S = 3.35e12        # HBM3, NVIDIA H100 SXM data sheet
-H100_FP32_OPS_PER_S = 67e12       # non-tensor-core fp32; no int64 peak given
-Q1_ROWS, Q1_LANES, Q1_SEGMENTS = 1 << 18, 12, 4096
-
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def time_ms(fn, inputs, iters: int = 40, warmup: int = 4) -> float:
-    """Mean device time of fn(*x) per call, rotating over `inputs` so the
-    working set exceeds the 50 MB L2 (a superchunk arrives cold)."""
-    for i in range(warmup):
-        fn(*inputs[i % len(inputs)])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*inputs[i % len(inputs)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def nvidia_smi() -> str:
@@ -64,13 +49,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def segsum_case(rng, dtype, n, k, c, mask, dev):
-    """Inputs for one parity case: ids with ~2% out of range, int64
-    values near 2^60, NaN under dead masks for float lanes."""
-    ids = rng.integers(0, c, n).astype(np.int32)
-    bad = rng.random(n) < 0.02
-    ids[bad] = rng.choice(np.array([-1, c, c + 5, -(1 << 30)], np.int32),
-                          int(bad.sum()))
+def segsum_case(rng, dtype, n, k, c, mask, dev, ids=None):
+    """Inputs for one parity case: ids with ~2% out of range (or `ids`
+    as given), int64 values near 2^60, NaN under dead masks for float
+    lanes."""
+    if ids is None:
+        ids = rng.integers(0, c, n).astype(np.int32)
+        bad = rng.random(n) < 0.02
+        ids[bad] = rng.choice(np.array([-1, c, c + 5, -(1 << 30)],
+                                       np.int32), int(bad.sum()))
     if dtype == torch.int64:
         vals = rng.integers((1 << 60) - (1 << 40), 1 << 60, (n, k))
         vals[rng.random((n, k)) < 0.5] *= -1
@@ -86,16 +73,62 @@ def segsum_case(rng, dtype, n, k, c, mask, dev):
     if valid is not None and dtype != torch.int64:
         vals = np.where(dead & (rng.random((n, k)) < 0.3), np.nan, vals)
     v = torch.from_numpy(vals).to(dev, dtype)
-    i = torch.from_numpy(ids).to(dev)
+    i = torch.from_numpy(np.asarray(ids, np.int32)).to(dev)
     m = None if valid is None else torch.from_numpy(valid).to(dev)
     return v, i, m
 
 
+def hold(got, v, i, c, m, where, worst) -> None:
+    """One parity check against segment_sum_plain: int64 exactly
+    (two's-complement wrap included); float64 within 1e-12 and float32
+    within 1e-5 of each segment's sum of |v| (atomic order varies from
+    run to run)."""
+    from tidb_tpu_torch.ops import segsum
+    want = segsum.segment_sum_plain(v, i, c, valid=m)
+    torch.cuda.synchronize()
+    if v.dtype == torch.int64:
+        if not torch.equal(got, want):
+            raise AssertionError(f"segsum {where}: int64 sums differ")
+        return
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"segsum {where}: NaN/inf")
+    scale = segsum.segment_sum_plain(torch.nan_to_num(v).abs(), i, c,
+                                     valid=m)
+    rtol = 1e-5 if v.dtype == torch.float32 else 1e-12
+    err = (got - want).abs()
+    if bool((err > rtol * scale + 1e-30).any()):
+        raise AssertionError(f"segsum {where}: max err {err.max().item()} "
+                             "over tolerance")
+    name = str(v.dtype).removeprefix("torch.")
+    worst[name] = max(worst[name], err.max().item())
+
+
+def edge_ids(case, n, c, window):
+    """Ids of the cases that aim at the kernel's warp grouping, the dead
+    slot C-1 and the edge of the table's window of W slots."""
+    r = np.arange(n)
+    if case == "one id per warp":
+        return np.full(n, min(3, c - 1))
+    if case == "alternating":
+        return r % min(2, c)
+    if case == "all at C-1":
+        return np.full(n, c - 1)
+    if case == "window edge":
+        near = np.array([window - 2, window - 1, window, window + 1,
+                         c - 2, c - 1, 0, -1, c])
+        return np.where(r % 3 == 0, near[r % near.size],
+                        np.clip(window - 32 + r % 64, -1, c))
+    raise ValueError(case)
+
+
 def check_segsum(dev) -> dict:
-    """segment_sum's kernel vs segment_sum_plain on the card. int64 is
-    held exactly (two's-complement wrap included); float64 within 1e-12
-    and float32 within 1e-5 of each segment's sum of |v| (atomic order
-    varies from run to run)."""
+    """The kernel vs segment_sum_plain on the card, with the tolerances of
+    `hold`. First the 109 cases of the first version through
+    segment_sum's own plan; then edge cases through the default plan (a
+    ring of one tile) and plans with rings of 3 and 2 tiles and 8 and 4
+    warps a block: ids grouped in warps,
+    at C-1 and on both sides of the window W, K in {1, 3, 5, 12, 13}, n
+    around the tile and the warp, C = 1 and C = 2^20 (no table fits)."""
     from tidb_tpu_torch.ops import segsum
     rng = np.random.default_rng(2026)
     worst = {"float32": 0.0, "float64": 0.0, "int64": 0}
@@ -107,68 +140,73 @@ def check_segsum(dev) -> dict:
                     for mask in ("none", "row", "lane"):
                         v, i, m = segsum_case(rng, dtype, n, k, c, mask, dev)
                         got = segsum.segment_sum(v, i, c, valid=m)
-                        want = segsum.segment_sum_plain(v, i, c, valid=m)
-                        torch.cuda.synchronize()
+                        hold(got, v, i, c, m, f"{dtype} n={n} k={k} c={c} "
+                             f"mask={mask}", worst)
                         cases += 1
-                        where = (f"{dtype} n={n} k={k} c={c} mask={mask}")
-                        if dtype == torch.int64:
-                            if not torch.equal(got, want):
-                                raise AssertionError(f"segsum {where}: "
-                                                     "int64 sums differ")
-                            continue
-                        if not torch.isfinite(got).all():
-                            raise AssertionError(f"segsum {where}: NaN/inf")
-                        scale = segsum.segment_sum_plain(
-                            torch.nan_to_num(v).abs(), i, c, valid=m)
-                        rtol = 1e-5 if dtype == torch.float32 else 1e-12
-                        err = (got - want).abs()
-                        if bool((err > rtol * scale + 1e-30).any()):
-                            raise AssertionError(
-                                f"segsum {where}: max err "
-                                f"{err.max().item()} over tolerance")
-                        name = str(dtype).removeprefix("torch.")
-                        worst[name] = max(worst[name], err.max().item())
     # 1-D values -> 1-D result
     v, i, m = segsum_case(rng, torch.int64, 5000, 1, 6, "row", dev)
     got = segsum.segment_sum(v[:, 0].contiguous(), i, 6, valid=m)
     assert got.shape == (6,)
     assert torch.equal(got, segsum.segment_sum_plain(v[:, 0], i, 6, m))
-    return {"cases": cases + 1, "max_abs_err": max(worst.values()),
+    cases += 1
+
+    limits = segsum._limits[0]
+    modes = {"none": 0, "row": 1, "lane": 2}
+    for dtype in (torch.float32, torch.float64, torch.int64):
+        elem = torch.empty((), dtype=dtype).element_size()
+        for mask, mode in modes.items():
+            for knobs in ({}, {"stage_target": 32 << 10, "stages": 3,
+                               "min_blocks": 2},
+                          {"stage_target": 16 << 10, "stages": 2,
+                           "max_threads": 128, "min_blocks": 5}):
+                def run(n, k, c, ids=None, label=""):
+                    nonlocal cases
+                    plan = segsum.launch_plan(elem, c, k, mode, limits,
+                                              **knobs)
+                    if callable(ids):
+                        ids = ids(n, c, plan.window)
+                    v, i, m = segsum_case(rng, dtype, n, k, c, mask, dev,
+                                          ids)
+                    got = torch.zeros((c, k), dtype=dtype, device=dev)
+                    segsum.launch(v, i, m, mode, got, plan)
+                    hold(got, v, i, c, m, f"{dtype} {label} n={n} k={k} "
+                         f"c={c} mask={mask} {plan}", worst)
+                    cases += 1
+                for case in ("one id per warp", "alternating", "all at C-1",
+                             "window edge"):
+                    run(20000, 12, 4096, lambda n, c, w, case=case:
+                        edge_ids(case, n, c, w), case)
+                run(5000, 12, 16, lambda n, c, w: edge_ids(
+                    "one id per warp", n, c, w), "one id per warp")
+                tile = segsum.launch_plan(elem, 4096, 12, mode, limits,
+                                          **knobs).tile
+                for k in (1, 3, 5, 12, 13):
+                    for n in (1, 31, 33, tile - 1, tile + 1, 3 * tile + 5):
+                        run(n, k, 4096)
+                run(3000, 5, 1)
+                run(1 << 16, 12, 1 << 20)
+                run(1 << 16, 12, 1 << 20, lambda n, c, w: edge_ids(
+                    "window edge", n, c, w), "window edge")
+    return {"cases": cases, "max_abs_err": max(worst.values()),
             "max_abs_err_by_dtype": worst}
 
 
-def time_segsum(dev) -> dict:
-    """Times at Q1's shape: 2^18 rows x 12 int64 lanes, a per-lane mask,
-    4096 segments of which the data fills 6 (the main path's stacked
-    call; every superchunk is one such call)."""
+def build_phase(root: str) -> dict:
+    """Builds the kernel with nvcc from the repo's source, then reports
+    what ptxas gave each variant and the atomic instructions in its SASS
+    (cuobjdump, where the toolkit has it)."""
     from tidb_tpu_torch.ops import segsum
-    rng = np.random.default_rng(7)
-    n, k, c = Q1_ROWS, Q1_LANES, Q1_SEGMENTS
-    inputs, lib_inputs = [], []
-    for _ in range(4):
-        vals = torch.from_numpy(rng.integers(0, 1 << 40, (n, k))).to(dev)
-        ids = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32)).to(dev)
-        valid = torch.from_numpy(rng.random((n, k)) < 0.98).to(dev)
-        inputs.append((vals, ids, valid))
-        lib_inputs.append((torch.where(valid, vals, 0), ids.long(),
-                           torch.zeros((c, k), dtype=torch.int64,
-                                       device=dev)))
-    kernel = time_ms(lambda v, i, m: segsum.segment_sum(v, i, c, valid=m),
-                     inputs)
-    plain = time_ms(lambda v, i, m: segsum.segment_sum_plain(v, i, c,
-                                                             valid=m),
-                    inputs)
-    library = time_ms(lambda v, i, out: out.index_add_(0, i, v), lib_inputs)
-    nbytes = n * (4 + k * 8 + k * 1) + c * k * 8
-    ops = n * k
-    bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ops = ops / H100_FP32_OPS_PER_S * 1e3
-    return {"shape": [n, k, c], "dtype": "int64", "mask": "lane",
-            "kernel_ms": kernel, "plain_ms": plain, "library_ms": library,
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else
-            "operations", "bytes": nbytes,
-            "lane_tile": segsum.lane_tile(torch.int64, c, k)}
+    t0 = time.perf_counter()
+    lib = segsum.build(force=True)
+    out = {"phase": "build", "seconds": time.perf_counter() - t0,
+           "kernels": {"segsum": str(lib.relative_to(root))},
+           "ptxas": segsum.ptxas_report(segsum.build_log)}
+    if not out["ptxas"]:
+        raise AssertionError("no ptxas report for the segsum variants:\n"
+                             + segsum.build_log)
+    from tidb_tpu_torch.benchmarks import segsum_bench
+    out["sass_atomics"] = segsum_bench.sass_atomics(lib)
+    return out
 
 
 def sync_free_dispatch(chunk, dev) -> None:
@@ -292,28 +330,31 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(), "nvidia_smi": smi})
 
-    t0 = time.perf_counter()
-    segsum.build(force=True)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {"segsum": str(segsum.LIBRARY.relative_to(
-              os.path.dirname(os.path.abspath(__file__))))}})
+    root = os.path.dirname(os.path.abspath(__file__))
+    emit(build_phase(root))
 
     parity = check_segsum(dev)
-    timing = time_segsum(dev)
-    emit({"phase": "kernel", "name": "segment_sum", **parity, **timing})
+    from tidb_tpu_torch.benchmarks import segsum_bench
+    q1_inputs = segsum_bench.q1_inputs(dev)
+    shapes = {"q1": q1_inputs,
+              "spread": segsum_bench.spread_inputs(q1_inputs)}
+    timing = {name: segsum_bench.time_shape(inputs)
+              for name, inputs in shapes.items()}
+    emit({"phase": "kernel", "name": "segment_sum", **parity,
+          "timing": timing})
 
     q1 = run_q1_phase(args, dev)
     emit(q1)
 
     emit({"kernels": [{
-        "name": "segment_sum", "route": "cuda",
+        "name": f"segment_sum ({name} ids)", "route": "cuda",
         "source": "tidb_tpu_torch/csrc/segsum.cu",
         "replaces": "tidb_tpu/ops/pallas_agg.py:147",
         "launches": q1["cold"]["segsum_launches"],
         "max_abs_err": parity["max_abs_err"],
-        "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]})
+        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"]} for name, t in timing.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

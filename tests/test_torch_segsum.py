@@ -179,3 +179,105 @@ def test_build_command_targets_hopper():
     assert "-shared" in flags and "-fPIC" in flags
     assert segsum.SOURCE.exists()
     assert segsum.BUILD_DIR.name == "_build"
+
+
+# The launch plan (ops/segsum.launch_plan) is pure Python: the kernel's
+# shapes, windows and shared-memory budget are held here on the CPU.
+
+Q1_SHAPE = dict(elem=8, num_segments=4096, k=12, mask_mode=2)
+
+
+def test_plan_q1_shape_is_windowed_with_several_blocks_per_sm():
+    plan = segsum.launch_plan(limits=segsum.H100, **Q1_SHAPE)
+    assert plan.variant == "window"
+    assert 13 <= plan.window < 4096     # Q1's codes 0..11 and slot C-1
+    assert plan.blocks_per_sm >= 2
+    assert plan.threads % 32 == 0 and plan.tile % plan.threads == 0
+    assert plan.grid(1 << 18) == min(132 * plan.blocks_per_sm,
+                                     (1 << 18) // plan.tile)
+
+
+def test_plan_small_table_is_whole():
+    plan = segsum.launch_plan(8, 6, 12, 2, segsum.H100)
+    assert plan.variant == "table" and plan.window == 6
+    assert plan.blocks_per_sm >= 2
+    plan = segsum.launch_plan(4, 1, 5, 1, segsum.H100)
+    assert plan.variant == "table" and plan.window == 1
+
+
+@pytest.mark.parametrize("elem", [4, 8])
+@pytest.mark.parametrize("mask_mode", [0, 1, 2])
+@pytest.mark.parametrize("k", [1, 3, 5, 12, 13, 64, 200])
+@pytest.mark.parametrize("c", [1, 6, 4096, 1 << 20])
+def test_plan_fits_shared_memory(elem, mask_mode, k, c):
+    """Shared bytes never exceed the H100's opt-in 232,448 per block, and
+    what the plan asks for covers the ring and every warp's table."""
+    plan = segsum.launch_plan(elem, c, k, mask_mode, segsum.H100)
+    assert plan.smem <= 232448
+    assert (plan.smem + 1024) * plan.blocks_per_sm <= 233472
+    need = (plan.stages * segsum.stage_bytes(elem, k, mask_mode, plan.tile)
+            + plan.threads // 32 * plan.window * k * elem)
+    assert need <= plan.smem
+    assert 1 <= plan.window <= c
+    assert 32 <= plan.tile <= segsum.MAX_TILE and plan.tile % 32 == 0
+    assert plan.tile % plan.threads == 0 and plan.threads <= 256
+
+
+def test_plan_rejects_lanes_wider_than_shared_memory():
+    with pytest.raises(ValueError):
+        segsum.launch_plan(8, 4096, 2000, 2, segsum.H100)
+
+
+def test_plan_never_oversubscribes_registers():
+    """__launch_bounds__(256, 4) caps registers at 64 a thread: a plan
+    never asks an SM for more than 32 warps."""
+    for c in (1, 6, 64):
+        for k in (1, 3, 12):
+            plan = segsum.launch_plan(4, c, k, 0, segsum.H100)
+            warps = plan.blocks_per_sm * plan.threads // 32
+            assert warps * 32 * segsum.REGS_PER_THREAD <= 65536
+
+
+def test_plan_is_cached_and_queries_the_card_once(monkeypatch):
+    queries = []
+
+    def query(index):
+        queries.append(index)
+        return segsum.H100
+    monkeypatch.setattr(segsum, "_query_device_limits", query)
+    monkeypatch.setattr(segsum, "_limits", {})
+    monkeypatch.setattr(segsum, "_plans", {})
+    dev = torch.device("cuda", 0)
+    first = segsum.plan_for(torch.int64, 4096, 12, 2, dev)
+    assert segsum.plan_for(torch.int64, 4096, 12, 2, dev) is first
+    assert first == segsum.launch_plan(limits=segsum.H100, **Q1_SHAPE)
+    segsum.plan_for(torch.float32, 6, 1, 0, dev)
+    assert queries == [0]
+
+
+def test_plan_window_holds_q1_slots():
+    """Q1's own segment_sum call (captured from the port's Q1 kernel on
+    generated lineitem) lands every id inside the default plan's window:
+    codes below W - 1 and the dead slot C - 1."""
+    from tidb_tpu_torch.benchmarks import segsum_bench
+    (v, ids, m, c), = segsum_bench.q1_inputs(torch.device("cpu"), count=1)
+    assert v.shape == (1 << 18, 12) and v.dtype == torch.int64
+    assert m.shape == v.shape and c == 4096
+    plan = segsum.launch_plan(8, c, 12, 2, segsum.H100)
+    slots = set(torch.unique(ids).tolist())
+    assert c - 1 in slots and len(slots) == 7
+    assert all(s < plan.window - 1 or s == c - 1 for s in slots)
+
+
+def test_ptxas_report_parses_each_variant():
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113"
+           "segsum_kernelIxLi2EEEvPKT_PKiPKhPS1_xiiiii' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN12_GLOBAL__N_113"
+           "segsum_kernelIxLi2EEEvPKT_PKiPKhPS1_xiiiii\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 40 registers, used 1 barriers, 400 bytes "
+           "cmem[0]\n")
+    assert segsum.ptxas_report(log) == [
+        {"dtype": "int64", "mask": 2, "spill_stores": 8, "spill_loads": 4,
+         "registers": 40}]
