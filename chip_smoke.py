@@ -7,16 +7,18 @@ Phases, one JSON line each:
   build   builds every hand-written kernel from the sources in the repo,
           with ptxas's registers and spills per variant and the atomic
           instructions of the SASS
-  kernel  each kernel against its plain torch version on the card, over
-          dtypes, masks and shapes, then its device time at the main
-          path's shapes (tidb_tpu_torch/benchmarks/segsum_bench.py: Q1's
-          own calls, and the same calls with spread ids) beside its host
-          time per call, the plain version, one PyTorch library call and
-          the bound
   q1      TPC-H Q1's aggregation (tidb_tpu_torch.executor.agg.run_q1) at
           scale factor --sf, cold (with transfers) and hot (columns resident
           on the card), each held exactly against a numpy truth; the
           kernels' launch counts are read around each run
+  kernel  each kernel against its plain torch version on the card, over
+          dtypes, masks and shapes (checked before q1), then its device
+          time at the main path's shapes
+          (tidb_tpu_torch/benchmarks/segsum_bench.py: Q1's own calls, and
+          the same calls with spread ids) beside its host time per call,
+          the plain version, one PyTorch library call and the bound; timed
+          after q1, since launches slow down in a process that
+          torch.profiler has traced
   kernels one line listing every kernel with its parity and times
 The card's name and power limit (as nvidia-smi gives them) stand on a
 line of their own, and the last line is
@@ -123,12 +125,11 @@ def edge_ids(case, n, c, window):
 
 def check_segsum(dev) -> dict:
     """The kernel vs segment_sum_plain on the card, with the tolerances of
-    `hold`. First the 109 cases of the first version through
-    segment_sum's own plan; then edge cases through the default plan (a
-    ring of one tile) and plans with rings of 3 and 2 tiles and 8 and 4
-    warps a block: ids grouped in warps,
-    at C-1 and on both sides of the window W, K in {1, 3, 5, 12, 13}, n
-    around the tile and the warp, C = 1 and C = 2^20 (no table fits)."""
+    `hold`, all through segment_sum and its own launch plan. First the 109
+    cases of the first version; then edge cases: ids grouped in warps, at
+    C-1 and on both sides of the window W (at C = 4096 and at C = W + 1),
+    K in {1, 3, 5, 12, 13}, n around the tile and the warp, C = 1 and
+    C = 2^20 (no table fits)."""
     from tidb_tpu_torch.ops import segsum
     rng = np.random.default_rng(2026)
     worst = {"float32": 0.0, "float64": 0.0, "int64": 0}
@@ -150,43 +151,37 @@ def check_segsum(dev) -> dict:
     assert torch.equal(got, segsum.segment_sum_plain(v[:, 0], i, 6, m))
     cases += 1
 
-    limits = segsum._limits[0]
     modes = {"none": 0, "row": 1, "lane": 2}
     for dtype in (torch.float32, torch.float64, torch.int64):
-        elem = torch.empty((), dtype=dtype).element_size()
         for mask, mode in modes.items():
-            for knobs in ({}, {"stage_target": 32 << 10, "stages": 3,
-                               "min_blocks": 2},
-                          {"stage_target": 16 << 10, "stages": 2,
-                           "max_threads": 128, "min_blocks": 5}):
-                def run(n, k, c, ids=None, label=""):
-                    nonlocal cases
-                    plan = segsum.launch_plan(elem, c, k, mode, limits,
-                                              **knobs)
-                    if callable(ids):
-                        ids = ids(n, c, plan.window)
-                    v, i, m = segsum_case(rng, dtype, n, k, c, mask, dev,
-                                          ids)
-                    got = torch.zeros((c, k), dtype=dtype, device=dev)
-                    segsum.launch(v, i, m, mode, got, plan)
-                    hold(got, v, i, c, m, f"{dtype} {label} n={n} k={k} "
-                         f"c={c} mask={mask} {plan}", worst)
-                    cases += 1
-                for case in ("one id per warp", "alternating", "all at C-1",
-                             "window edge"):
-                    run(20000, 12, 4096, lambda n, c, w, case=case:
-                        edge_ids(case, n, c, w), case)
-                run(5000, 12, 16, lambda n, c, w: edge_ids(
-                    "one id per warp", n, c, w), "one id per warp")
-                tile = segsum.launch_plan(elem, 4096, 12, mode, limits,
-                                          **knobs).tile
-                for k in (1, 3, 5, 12, 13):
-                    for n in (1, 31, 33, tile - 1, tile + 1, 3 * tile + 5):
-                        run(n, k, 4096)
-                run(3000, 5, 1)
-                run(1 << 16, 12, 1 << 20)
-                run(1 << 16, 12, 1 << 20, lambda n, c, w: edge_ids(
-                    "window edge", n, c, w), "window edge")
+            def plan(k, c):
+                return segsum.plan_for(dtype, c, k, mode, dev)
+
+            def run(n, k, c, ids=None, label=""):
+                nonlocal cases
+                if callable(ids):
+                    ids = ids(n, c, plan(k, c).window)
+                v, i, m = segsum_case(rng, dtype, n, k, c, mask, dev, ids)
+                got = segsum.segment_sum(v, i, c, valid=m)
+                hold(got, v, i, c, m, f"{dtype} {label} n={n} k={k} "
+                     f"c={c} mask={mask} {plan(k, c)}", worst)
+                cases += 1
+            for case in ("one id per warp", "alternating", "all at C-1",
+                         "window edge"):
+                run(20000, 12, 4096, lambda n, c, w, case=case:
+                    edge_ids(case, n, c, w), case)
+            run(5000, 12, 16, lambda n, c, w: edge_ids(
+                "one id per warp", n, c, w), "one id per warp")
+            run(20000, 12, plan(12, 4096).window + 1, lambda n, c, w:
+                edge_ids("window edge", n, c, w), "window edge")
+            for k in (1, 3, 5, 12, 13):
+                tile = plan(k, 4096).tile
+                for n in (1, 31, 33, tile - 1, tile + 1, 3 * tile + 5):
+                    run(n, k, 4096)
+            run(3000, 5, 1)
+            run(1 << 16, 12, 1 << 20)
+            run(1 << 16, 12, 1 << 20, lambda n, c, w: edge_ids(
+                "window edge", n, c, w), "window edge")
     return {"cases": cases, "max_abs_err": max(worst.values()),
             "max_abs_err_by_dtype": worst}
 
@@ -334,6 +329,9 @@ def main() -> int:
     emit(build_phase(root))
 
     parity = check_segsum(dev)
+    q1 = run_q1_phase(args, dev)
+    emit(q1)
+
     from tidb_tpu_torch.benchmarks import segsum_bench
     q1_inputs = segsum_bench.q1_inputs(dev)
     shapes = {"q1": q1_inputs,
@@ -342,9 +340,6 @@ def main() -> int:
               for name, inputs in shapes.items()}
     emit({"phase": "kernel", "name": "segment_sum", **parity,
           "timing": timing})
-
-    q1 = run_q1_phase(args, dev)
-    emit(q1)
 
     emit({"kernels": [{
         "name": f"segment_sum ({name} ids)", "route": "cuda",

@@ -211,11 +211,12 @@ def test_plan_small_table_is_whole():
 @pytest.mark.parametrize("c", [1, 6, 4096, 1 << 20])
 def test_plan_fits_shared_memory(elem, mask_mode, k, c):
     """Shared bytes never exceed the H100's opt-in 232,448 per block, and
-    what the plan asks for covers the ring and every warp's table."""
+    what the plan asks for covers the staged tile and every warp's
+    table."""
     plan = segsum.launch_plan(elem, c, k, mask_mode, segsum.H100)
     assert plan.smem <= 232448
     assert (plan.smem + 1024) * plan.blocks_per_sm <= 233472
-    need = (plan.stages * segsum.stage_bytes(elem, k, mask_mode, plan.tile)
+    need = (segsum.stage_bytes(elem, k, mask_mode, plan.tile)
             + plan.threads // 32 * plan.window * k * elem)
     assert need <= plan.smem
     assert 1 <= plan.window <= c
@@ -255,6 +256,26 @@ def test_plan_is_cached_and_queries_the_card_once(monkeypatch):
     assert queries == [0]
 
 
+def test_plan_for_resolves_the_current_device(monkeypatch):
+    """A device without an index is the current device: its limits are
+    read, and its plans cached, under that device's index."""
+    queries = []
+
+    def query(index):
+        queries.append(index)
+        return segsum.H100
+    monkeypatch.setattr(segsum, "_query_device_limits", query)
+    monkeypatch.setattr(segsum, "_limits", {})
+    monkeypatch.setattr(segsum, "_plans", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    plan = segsum.plan_for(torch.int64, 4096, 12, 2, torch.device("cuda"))
+    assert segsum.plan_for(torch.int64, 4096, 12, 2,
+                           torch.device("cuda", 1)) is plan
+    assert queries == [1]
+    segsum.plan_for(torch.int64, 4096, 12, 2, torch.device("cuda", 0))
+    assert queries == [1, 0]
+
+
 def test_plan_window_holds_q1_slots():
     """Q1's own segment_sum call (captured from the port's Q1 kernel on
     generated lineitem) lands every id inside the default plan's window:
@@ -271,9 +292,9 @@ def test_plan_window_holds_q1_slots():
 
 def test_ptxas_report_parses_each_variant():
     log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113"
-           "segsum_kernelIxLi2EEEvPKT_PKiPKhPS1_xiiiii' for 'sm_90a'\n"
+           "segsum_kernelIxLi2EEEvPKT_PKiPKhPS1_xiiii' for 'sm_90a'\n"
            "ptxas info    : Function properties for _ZN12_GLOBAL__N_113"
-           "segsum_kernelIxLi2EEEvPKT_PKiPKhPS1_xiiiii\n"
+           "segsum_kernelIxLi2EEEvPKT_PKiPKhPS1_xiiii\n"
            "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
            "loads\n"
            "ptxas info    : Used 40 registers, used 1 barriers, 400 bytes "

@@ -1,6 +1,6 @@
 """Device times of the segment-sum kernel at the main path's shapes.
 
-    python -m tidb_tpu_torch.benchmarks.segsum_bench [--baseline SRC]
+    python -m tidb_tpu_torch.benchmarks.segsum_bench [--baseline DIR]
 
 Two shapes, both Q1's stacked call (2^18 rows x 12 int64 lanes, a
 per-lane mask, C = 4096):
@@ -15,9 +15,10 @@ torch.profiler's device events (the kernel's own, and all device work of
 a call for the plain version and index_add_); host time per call is the
 host clock around the same calls, with no synchronisation inside.
 
-`--baseline SRC` builds another segsum.cu with the same C entry point of
-the first version (tidb_segsum with ten arguments), for example from an
-unpacked parent commit, and times it against this tree's kernel plans in
+`--baseline DIR` loads tidb_tpu_torch/ops/segsum.py of another checkout
+of the repository (for example the parent commit, unpacked with `git
+archive`) as a module of its own, which builds that checkout's kernel
+into its own _build/, and times its segment_sum against this tree's in
 turns (baseline, kernel, kernel, baseline) in one process. Each line of
 output is one JSON object. Needs a CUDA card.
 """
@@ -25,7 +26,7 @@ output is one JSON object. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib.util
 import json
 import sys
 import time
@@ -37,6 +38,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12        # HBM3, NVIDIA H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12       # non-tensor-core fp32; no int64 peak given
 Q1_SUPERCHUNK = 1 << 18
+ROUNDS = 2                        # turns of (baseline, kernel, kernel, baseline)
 
 
 def q1_inputs(dev, count: int = 4, seed: int = 42):
@@ -150,25 +152,33 @@ def bound(n: int, k: int, c: int, elem: int, mask_bytes: int) -> dict:
             "bytes": nbytes}
 
 
-def time_shape(inputs, plan=None) -> dict:
-    """Kernel (own device time, device time of the whole call with its
-    zeroed output, host time per call), plain version and index_add_ at
-    one shape. `plan` overrides the kernel's launch plan."""
+def time_kernel(mod, inputs) -> dict:
+    """`mod.segment_sum` (this tree's ops/segsum or a baseline's) at one
+    shape: the kernel's own device time, the device time of the whole
+    call with its zeroed output, and host time per call. The call is
+    first held exactly (int64) against the plain version."""
+    from tidb_tpu_torch.ops import segsum
+
+    def kern(v, i, m, c):
+        return mod.segment_sum(v, i, c, valid=m)
+    v, i, m, c = inputs[0]
+    if not torch.equal(kern(v, i, m, c),
+                       segsum.segment_sum_plain(v, i, c, valid=m)):
+        raise AssertionError(f"{mod.__name__}.segment_sum disagrees with "
+                             "the plain version")
+    return {"kernel_ms": device_ms(kern, inputs, match="segsum_kernel"),
+            "call_device_ms": device_ms(kern, inputs),
+            "host_ms_per_call": host_ms(kern, inputs)}
+
+
+def time_shape(inputs) -> dict:
+    """This tree's kernel (time_kernel), plain version and index_add_ at
+    one shape, with the launch plan and the bound."""
     from tidb_tpu_torch.ops import segsum
     v0, _i, m0, c = inputs[0]
     n, k = v0.shape
     mode = 0 if m0 is None else (2 if m0.shape == v0.shape else 1)
-
-    if plan is None:
-        def kern(v, i, m, c):
-            return segsum.segment_sum(v, i, c, valid=m)
-        plan = segsum.plan_for(v0.dtype, c, k, mode, v0.device)
-    else:
-        def kern(v, i, m, c):
-            out = torch.zeros((c, v.shape[1]), dtype=v.dtype,
-                              device=v.device)
-            segsum.launch(v, i, m, mode, out, plan)
-            return out
+    plan = segsum.plan_for(v0.dtype, c, k, mode, v0.device)
 
     def plain(v, i, m, c):
         return segsum.segment_sum_plain(v, i, c, valid=m)
@@ -185,9 +195,7 @@ def time_shape(inputs, plan=None) -> dict:
                      "tile": plan.tile, "threads": plan.threads,
                      "blocks_per_sm": plan.blocks_per_sm,
                      "smem": plan.smem, "grid": plan.grid(n)},
-            "kernel_ms": device_ms(kern, inputs, match="segsum_kernel"),
-            "call_device_ms": device_ms(kern, inputs),
-            "host_ms_per_call": host_ms(kern, inputs),
+            **time_kernel(segsum, inputs),
             "plain_ms": device_ms(plain, inputs),
             "library_ms": device_ms(library, lib_inputs),
             **bound(n, k, c, v0.element_size(), mask_bytes),
@@ -222,96 +230,23 @@ def sass_atomics(lib: Path) -> dict | None:
     return counts
 
 
-def baseline_library(source: Path):
-    """Builds another segsum.cu (the first version's C entry point) into
-    _build/libsegsum_baseline.so and binds it."""
-    from tidb_tpu_torch.ops import segsum
-    path = segsum.build(force=True, source=source,
-                        out=segsum.BUILD_DIR / "libsegsum_baseline.so")
-    lib = ctypes.CDLL(str(path))
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.tidb_segsum.argtypes = [i, p, p, p, i, p, ll, i, i, p]
-    lib.tidb_segsum.restype = i
-    return lib
-
-
-def time_baseline(lib, inputs) -> dict:
-    v0, _i, m0, c = inputs[0]
-    mode = 0 if m0 is None else (2 if m0.shape == v0.shape else 1)
-    from tidb_tpu_torch.ops import segsum
-
-    def kern(v, i, m, c):
-        out = torch.zeros((c, v.shape[1]), dtype=v.dtype, device=v.device)
-        rc = lib.tidb_segsum(segsum._DTYPE_CODES[v.dtype], v.data_ptr(),
-                             i.data_ptr(),
-                             m.data_ptr() if m is not None else None, mode,
-                             out.data_ptr(), v.shape[0], v.shape[1], c,
-                             torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"baseline launch failed ({rc})")
-        return out
-    # the baseline agrees with the plain version before it is timed
-    for v, i, m, c in inputs[:1]:
-        if not torch.equal(kern(v, i, m, c),
-                           segsum.segment_sum_plain(v, i, c, valid=m)):
-            raise AssertionError("baseline kernel disagrees with the plain "
-                                 "version")
-    return {"kernel_ms": device_ms(kern, inputs, match="segsum_kernel"),
-            "host_ms_per_call": host_ms(kern, inputs)}
-
-
-def sweep(shapes) -> None:
-    """Kernel device time at each shape over a grid of the launch plan's
-    knobs (ops/segsum.launch_plan), each plan first held exactly against
-    the plain version."""
-    from tidb_tpu_torch.ops import segsum
-    v0, _i, m0, c = shapes["q1"][0]
-    limits = segsum._limits[v0.device.index]
-    plans = set()
-    for target in (16 << 10, 32 << 10):
-        for threads in (128, 256):
-            for stages in (1, 2, 3):
-                for blocks in (2, 4, 5, 6, 8, 10):
-                    try:
-                        plan = segsum.launch_plan(
-                            v0.element_size(), c, v0.shape[1], 2, limits,
-                            stage_target=target, max_threads=threads,
-                            stages=stages, min_blocks=blocks)
-                    except ValueError:
-                        continue
-                    if plan in plans:
-                        continue
-                    plans.add(plan)
-                    row = {"stage_target": target, "threads": threads,
-                           "stages": stages, "min_blocks": blocks,
-                           "plan": str(plan)}
-                    for name, inputs in shapes.items():
-                        v, i, m, c = inputs[0]
-                        out = torch.zeros((c, v.shape[1]), dtype=v.dtype,
-                                          device=v.device)
-                        segsum.launch(v, i, m, 2, out, plan)
-                        if not torch.equal(out, segsum.segment_sum_plain(
-                                v, i, c, valid=m)):
-                            raise AssertionError(f"{plan} disagrees with "
-                                                 "the plain version")
-
-                        def kern(v, i, m, c):
-                            out = torch.zeros((c, v.shape[1]),
-                                              dtype=v.dtype, device=v.device)
-                            segsum.launch(v, i, m, 2, out, plan)
-                        row[name + "_ms"] = device_ms(kern, inputs,
-                                                      match="segsum_kernel")
-                    print(json.dumps(row), flush=True)
+def load_baseline(root: Path):
+    """tidb_tpu_torch/ops/segsum.py of the checkout at `root`, loaded as a
+    module of its own; it builds its kernel into that checkout's
+    _build/ and keeps its own launch count."""
+    path = root / "tidb_tpu_torch" / "ops" / "segsum.py"
+    spec = importlib.util.spec_from_file_location("baseline_segsum", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path,
-                    help="another segsum.cu to time in turns with this one")
-    ap.add_argument("--rounds", type=int, default=2,
-                    help="turns of (baseline, kernel, kernel, baseline)")
-    ap.add_argument("--sweep", action="store_true",
-                    help="time a grid of launch-plan knobs instead")
+                    help="another checkout whose segment_sum is timed in "
+                    "turns with this one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("segsum_bench: no CUDA device available", file=sys.stderr)
@@ -321,23 +256,19 @@ def main(argv=None) -> int:
     segsum.build()
     q1 = q1_inputs(dev)
     shapes = {"q1": q1, "spread": spread_inputs(q1)}
-    if args.sweep:
-        sweep(shapes)
-        return 0
     base = None
     if args.baseline:
-        base = baseline_library(args.baseline)
+        base = load_baseline(args.baseline)
         print(json.dumps({"baseline": str(args.baseline), "sass_atomics":
-                          sass_atomics(segsum.BUILD_DIR /
-                                       "libsegsum_baseline.so")}), flush=True)
-    for r in range(args.rounds):
+                          sass_atomics(base.build())}), flush=True)
+    for r in range(ROUNDS):
         for name, inputs in shapes.items():
             order = ["baseline", "kernel", "kernel", "baseline"]
             for who in order:
                 if who == "baseline":
                     if base is None:
                         continue
-                    res = time_baseline(base, inputs)
+                    res = time_kernel(base, inputs)
                 else:
                     res = time_shape(inputs)
                 print(json.dumps({"round": r, "cell": name, "kernel": who,

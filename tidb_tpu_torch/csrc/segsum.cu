@@ -27,8 +27,9 @@
 //    one-add-per-(row, lane) design was a retry. Now a warp groups its 32
 //    rows by slot with __match_any_sync and sums each group's lanes in
 //    registers with a log-step shuffle tree (int64 and double move as two
-//    32-bit halves inside __shfl_sync; int64 adds stay exact, with
-//    two's-complement wrap). One leader lane per distinct slot then adds,
+//    32-bit halves inside __shfl_sync; int64 adds stay exact, in unsigned
+//    64-bit arithmetic, so their wrap is defined). One leader lane per
+//    distinct slot then adds,
 //    for Q1 at most 7 adds per lane per 32 rows instead of 32, into a
 //    table private to its warp: a slot has one leader per warp, so the
 //    adds are plain loads and stores and the kernel issues no atomic in
@@ -41,15 +42,14 @@
 // 3. Scalar strided loads. A persistent grid (SMs x blocks per SM) walks
 //    contiguous row tiles. Each tile's ids, values and mask bytes are
 //    contiguous in memory whatever K is, so they are staged into shared
-//    memory with 16-byte cp.async copies into a ring of `stages` buffers
-//    (stages - 1 tiles in flight while one is reduced). Rows of whole
-//    16-byte chunks are read back as 16-byte vectors. Neighbouring lanes
-//    of a row leave for global memory together, so a row's atomics fall
-//    on one or two cache lines. On the H100 the plan's default ring is a
-//    single buffer: 4 blocks of 256 threads (32 warps, the most 64
-//    registers a thread allow) then fit an SM, and the other blocks'
-//    copies overlap each block's reduction; two buffers fit only with
-//    fewer warps, which measured slower (PERF.md).
+//    memory with 16-byte cp.async copies, one tile a block at a time.
+//    Rows of whole 16-byte chunks are read back as 16-byte vectors.
+//    Neighbouring lanes of a row leave for global memory together, so a
+//    row's atomics fall on one or two cache lines. The bytes in flight
+//    come from the other blocks of the SM: 4 blocks of 256 threads (32
+//    warps, the most 64 registers a thread allow) fit an SM, and their
+//    copies overlap each block's reduction. Double buffering fits only
+//    with fewer warps, and measured slower (PERF.md).
 // 4. O(C) table work. A table holds W slots: the first W - 1 slots and
 //    slot C - 1 (the dead slot of the direct group table, where Q1's
 //    filtered rows land). W = C when the whole [C, K] table of every warp
@@ -57,8 +57,8 @@
 //    that budget, and slots outside the window go to global atomics after
 //    the warp's pre-aggregation. Zeroing and the flush cost O(W * K), and
 //    only non-zero entries are flushed.
-// 5. Per-call device queries. The launch plan (W, tile, stages, threads,
-//    grid, shared bytes) is computed once per shape class in Python
+// 5. Per-call device queries. The launch plan (W, tile, threads, grid,
+//    shared bytes) is computed once per shape class in Python
 //    (ops/segsum.py) from device limits read once per device, and the
 //    shared-memory opt-in of every variant is set once per device
 //    (tidb_segsum_init). A launch is one cudaLaunchKernel.
@@ -110,18 +110,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
+// Waits until every cp.async this thread issued has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most `newer` (0..3) committed groups are still in flight.
-__device__ __forceinline__ void cp_async_wait(int newer) {
-  switch (newer) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory");
-  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Copies `bytes` from 16-byte aligned global memory to 16-byte aligned
@@ -149,6 +141,18 @@ __device__ __forceinline__ void load_lanes(const T* p, int live, T* x) {
       memcpy(x + i, &u, 16);
     }
   }
+}
+
+// a + b; int64 adds in unsigned 64-bit arithmetic, so a sum that
+// overflows wraps as two's complement by definition.
+template <typename T>
+__device__ __forceinline__ T add(T a, T b) {
+  return a + b;
+}
+template <>
+__device__ __forceinline__ long long add(long long a, long long b) {
+  return static_cast<long long>(static_cast<unsigned long long>(a) +
+                                static_cast<unsigned long long>(b));
 }
 
 __device__ __forceinline__ void atomic_add(float* p, float v) {
@@ -246,7 +250,7 @@ __device__ __forceinline__ void reduce_rows(T* sv, int32_t* si, uint8_t* sm,
 #pragma unroll
           for (int c = 0; c < kChunk; ++c) {
             const T y = __shfl_sync(kFull, x[c], src);
-            if (nxt[j] >= 0) x[c] += y;
+            if (nxt[j] >= 0) x[c] = add(x[c], y);
           }
         }
       }
@@ -256,7 +260,8 @@ __device__ __forceinline__ void reduce_rows(T* sv, int32_t* si, uint8_t* sm,
           const int k = k0 + c;
           if (k >= K) break;
           if (row >= 0) {
-            if (x[c] != T(0)) wt[row * K + k] += x[c];  // one leader a slot
+            // one leader a slot: a plain load and store
+            if (x[c] != T(0)) wt[row * K + k] = add(wt[row * K + k], x[c]);
           } else {
             rv[k] = x[c];     // the group's sum, for the pass below
           }
@@ -280,8 +285,8 @@ __device__ __forceinline__ void reduce_rows(T* sv, int32_t* si, uint8_t* sm,
         const T v = sv[(r0 + er) * K + ek];
         if (v != T(0)) {
           const int wr = window_row(s, W, C);
-          if (wr >= 0)
-            wt[wr * K + ek] += v;   // slots of the warp's rows are distinct
+          if (wr >= 0)   // slots of the warp's rows are distinct
+            wt[wr * K + ek] = add(wt[wr * K + ek], v);
           else
             atomic_add(&out[(long long)s * K + ek], v);
         }
@@ -304,12 +309,12 @@ template <typename T, int MASK>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 segsum_kernel(const T* __restrict__ vals, const int32_t* __restrict__ ids,
               const uint8_t* __restrict__ valid, T* __restrict__ out,
-              long long n, int K, int C, int W, int tile, int stages) {
+              long long n, int K, int C, int W, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int vbytes = round16(tile * K * (int)sizeof(T));
   const int ibytes = tile * 4;
   const int stage = stage_bytes((int)sizeof(T), K, MASK, tile);
-  T* table = reinterpret_cast<T*>(smem + stages * stage);
+  T* table = reinterpret_cast<T*>(smem + stage);
   const int words = W * K;
   const int nwarps = blockDim.x >> 5;
   T* wt = table + (threadIdx.x >> 5) * words;
@@ -318,48 +323,30 @@ segsum_kernel(const T* __restrict__ vals, const int32_t* __restrict__ ids,
     table[i] = T(0);
 
   const long long ntiles = (n + tile - 1) / tile;
-  auto stage_tile = [&](int buf, long long t) {
-    unsigned char* dst = smem + buf * stage;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const long long row0 = t * tile;
     const int rows = (int)min((long long)tile, n - row0);
-    stage_copy(dst, reinterpret_cast<const unsigned char*>(vals + row0 * K),
+    stage_copy(smem, reinterpret_cast<const unsigned char*>(vals + row0 * K),
                rows * K * (int)sizeof(T));
-    stage_copy(dst + vbytes,
+    stage_copy(smem + vbytes,
                reinterpret_cast<const unsigned char*>(ids + row0), rows * 4);
-    if (MASK == 1) stage_copy(dst + vbytes + ibytes, valid + row0, rows);
+    if (MASK == 1) stage_copy(smem + vbytes + ibytes, valid + row0, rows);
     if (MASK == 2)
-      stage_copy(dst + vbytes + ibytes, valid + row0 * K, rows * K);
-  };
-
-  // a ring of `stages` tiles: tile i of this block lands in buffer
-  // i % stages, and stages - 1 tiles are in flight while one is reduced
-  for (int s = 0; s < stages - 1; ++s) {
-    const long long t = blockIdx.x + (long long)s * gridDim.x;
-    if (t < ntiles) stage_tile(s, t);
-    cp_async_commit();
-  }
-  int cur = 0;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long ahead = t + (long long)(stages - 1) * gridDim.x;
-    if (ahead < ntiles) stage_tile((cur + stages - 1) % stages, ahead);
-    cp_async_commit();            // possibly empty: keeps the count uniform
-    cp_async_wait(stages - 1);    // tile t's copies have landed
+      stage_copy(smem + vbytes + ibytes, valid + row0 * K, rows * K);
+    cp_async_wait_all();
     __syncthreads();
-    unsigned char* buf = smem + cur * stage;
-    const int rows = (int)min((long long)tile, n - t * tile);
     for (int r0 = threadIdx.x & ~31; r0 < tile; r0 += blockDim.x)
-      reduce_rows<T, MASK>(reinterpret_cast<T*>(buf),
-                           reinterpret_cast<int32_t*>(buf + vbytes),
-                           buf + vbytes + ibytes, r0, rows, wt, out, K, C,
+      reduce_rows<T, MASK>(reinterpret_cast<T*>(smem),
+                           reinterpret_cast<int32_t*>(smem + vbytes),
+                           smem + vbytes + ibytes, r0, rows, wt, out, K, C,
                            W);
-    __syncthreads();              // buffer `cur` is refilled next round
-    cur = (cur + 1) % stages;
+    __syncthreads();              // the tile is restaged next round
   }
 
   __syncthreads();
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
     T v = table[i];
-    for (int w = 1; w < nwarps; ++w) v += table[w * words + i];
+    for (int w = 1; w < nwarps; ++w) v = add(v, table[w * words + i]);
     if (v != T(0)) {
       const int row = i / K;
       const int slot = row < W - 1 ? row : C - 1;
@@ -420,26 +407,25 @@ int tidb_segsum_init(int max_smem) {
 // out[C, K] += the segment sums of values [n, K] by ids, as above.
 // dtype: 0 float32, 1 float64, 2 int64. mask_mode: 0 none, 1 per row,
 // 2 per lane. The launch plan comes from ops/segsum.launch_plan: W window
-// slots, tile rows per staged tile, stages tiles in the ring, threads,
-// grid and smem bytes. Launches on `stream`, does not synchronise, and
+// slots, tile rows per staged tile, threads, grid and smem bytes. Launches on `stream`, does not synchronise, and
 // returns the cudaError_t of the launch (0 = launched).
 int tidb_segsum(int dtype, const void* vals, const void* ids,
                 const void* valid, int mask_mode, void* out, long long n,
-                int K, int C, void* stream, int W, int tile, int stages,
-                int threads, int grid, int smem) {
+                int K, int C, void* stream, int W, int tile, int threads,
+                int grid, int smem) {
   if (dtype < 0 || dtype > 2 || mask_mode < 0 || mask_mode > 2 || n < 1 ||
       K < 1 || C < 1 || W < 1 || W > C || tile < 32 || tile % 32 ||
-      stages < 1 || stages > 4 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 || tile % threads || grid < 1)
+      threads < 32 || threads > kMaxThreads || threads % 32 ||
+      tile % threads || grid < 1)
     return (int)cudaErrorInvalidValue;
   const long long need =
-      (long long)stages * stage_bytes(kElem[dtype], K, mask_mode, tile) +
+      (long long)stage_bytes(kElem[dtype], K, mask_mode, tile) +
       (long long)(threads / 32) * W * K * kElem[dtype];
   if ((long long)smem < need) return (int)cudaErrorInvalidValue;
   const uintptr_t align = (uintptr_t)vals | (uintptr_t)ids |
                           (mask_mode ? (uintptr_t)valid : 0);
   if (align & 15) return (int)cudaErrorInvalidValue;
-  void* args[] = {&vals, &ids, &valid, &out, &n, &K, &C, &W, &tile, &stages};
+  void* args[] = {&vals, &ids, &valid, &out, &n, &K, &C, &W, &tile};
   cudaError_t err = cudaLaunchKernel(pick(dtype, mask_mode), dim3(grid),
                                      dim3(threads), args, (size_t)smem,
                                      static_cast<cudaStream_t>(stream));

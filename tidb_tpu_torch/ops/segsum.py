@@ -9,7 +9,7 @@ plain torch, which the tests and chip_smoke.py hold the kernel against.
 There is no other fallback: a CUDA tensor the kernel cannot take raises.
 
 The launch plan (the window of slots each warp's table keeps, rows per
-staged tile, tiles in the ring, threads, blocks per SM, shared bytes) is
+staged tile, threads, blocks per SM, shared bytes) is
 computed here, once per (dtype, C, K, mask mode, device), from device
 limits read once per device; `launch_plan` is pure, so the CPU tests
 reach it.
@@ -55,15 +55,13 @@ _lib_mu = threading.Lock()
 # what ptxas printed (-Xptxas -v) for the last build in this process
 build_log = ""
 
-# Launch-plan defaults. `python -m tidb_tpu_torch.benchmarks.segsum_bench
-# --sweep` times others: on the H100 the kernel is faster the more warps
-# an SM holds, and a single staged tile per block with 32 warps an SM beat
-# two tiles (double buffering) with fewer, at Q1's shape and at spread ids
-# alike (PERF.md).
+# The launch plan's constants. On the H100 the kernel runs faster the more
+# warps an SM holds: one staged tile a block and 4 blocks of 256 threads
+# an SM (32 warps) beat double buffering, which fits only with fewer
+# warps, at Q1's shape and at spread ids alike (PERF.md).
 STAGE_TARGET = 32 * 1024      # bytes of one staged tile: ids, values, mask
 MAX_TILE = 1024               # rows per staged tile
 MAX_THREADS = 256             # the kernel's __launch_bounds__
-STAGES = 1                    # tiles in each block's ring of buffers
 MIN_BLOCKS_PER_SM = 4
 REGS_PER_THREAD = 64          # what __launch_bounds__(256, 4) allows
 
@@ -89,7 +87,6 @@ class LaunchPlan:
     segments: int
     window: int               # W: slots 0..W-2 and slot C-1 in each table
     tile: int                 # rows per staged tile
-    stages: int               # tiles in the ring
     threads: int              # one [W, K] table per warp
     blocks_per_sm: int
     smem: int                 # dynamic shared bytes per block
@@ -121,31 +118,29 @@ def stage_bytes(elem: int, k: int, mask_mode: int, tile: int) -> int:
 
 
 def launch_plan(elem: int, num_segments: int, k: int, mask_mode: int,
-                limits: DeviceLimits, *, stage_target: int = STAGE_TARGET,
-                max_threads: int = MAX_THREADS, stages: int = STAGES,
-                min_blocks: int = MIN_BLOCKS_PER_SM) -> LaunchPlan:
+                limits: DeviceLimits) -> LaunchPlan:
     """The kernel's launch plan for lanes of `elem` bytes.
 
-    A block keeps a ring of `stages` staged tiles of about `stage_target`
-    bytes and one [W, K] table per warp, all within a budget that leaves
-    `min_blocks` blocks resident per SM. W = C when the whole table fits;
-    otherwise W fills the budget, and slots outside the window go to
-    global atomics."""
+    A block keeps one staged tile of about STAGE_TARGET bytes and one
+    [W, K] table per warp, all within a budget that leaves
+    MIN_BLOCKS_PER_SM blocks resident per SM. W = C when the whole table
+    fits; otherwise W fills the budget, and slots outside the window go
+    to global atomics."""
     row_bytes = k * elem + 4 + _mask_bytes_per_row(mask_mode, k)
     slot_bytes = k * elem
     tile = 32
-    while tile * 2 <= min(MAX_TILE, stage_target // row_bytes):
+    while tile * 2 <= min(MAX_TILE, STAGE_TARGET // row_bytes):
         tile *= 2
-    # lanes so wide that not even 32-row tiles fit `min_blocks` blocks per
-    # SM take the whole opt-in of one block
-    budgets = [min(limits.smem_per_block,
-                   limits.smem_per_sm // min_blocks - limits.smem_reserved),
+    # lanes so wide that not even 32-row tiles fit MIN_BLOCKS_PER_SM blocks
+    # per SM take the whole opt-in of one block
+    budgets = [min(limits.smem_per_block, limits.smem_per_sm //
+                   MIN_BLOCKS_PER_SM - limits.smem_reserved),
                limits.smem_per_block]
     budget = budgets.pop(0)
     while True:
-        threads = min(max_threads, tile)
+        threads = min(MAX_THREADS, tile)
         tables = threads // 32
-        staging = stages * stage_bytes(elem, k, mask_mode, tile)
+        staging = stage_bytes(elem, k, mask_mode, tile)
         room = budget - staging
         if room >= tables * slot_bytes:
             break
@@ -162,8 +157,8 @@ def launch_plan(elem: int, num_segments: int, k: int, mask_mode: int,
                  limits.regs_per_sm // (REGS_PER_THREAD * threads),
                  limits.smem_per_sm // (smem + limits.smem_reserved), 32)
     return LaunchPlan(segments=num_segments, window=window, tile=tile,
-                      stages=stages, threads=threads, blocks_per_sm=blocks,
-                      smem=smem, sms=limits.sms)
+                      threads=threads, blocks_per_sm=blocks, smem=smem,
+                      sms=limits.sms)
 
 
 def _nvcc() -> str:
@@ -174,29 +169,27 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build_command(out: Path = LIBRARY, source: Path = SOURCE) -> list[str]:
-    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
+def build_command(out: Path = LIBRARY) -> list[str]:
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(SOURCE)]
 
 
-def build(force: bool = False, source: Path = SOURCE,
-          out: Path = LIBRARY) -> Path:
-    """Compile `source` (csrc/segsum.cu) into `out` (_build/libsegsum.so)
-    unless a build newer than the source is there; keeps ptxas's report
-    in `build_log`. Writes to a temporary name first, so a concurrent
-    reader never loads a half-written library."""
+def build(force: bool = False) -> Path:
+    """Compile csrc/segsum.cu into _build/libsegsum.so unless a build
+    newer than the source is there; keeps ptxas's report in `build_log`.
+    Writes to a temporary name first, so a concurrent reader never loads
+    a half-written library."""
     global build_log
-    if not force and out.exists() and \
-            out.stat().st_mtime >= source.stat().st_mtime:
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.parent / f".{out.stem}.{os.getpid()}.so"
-    res = subprocess.run(build_command(tmp, source), capture_output=True,
-                         text=True)
+    if not force and LIBRARY.exists() and \
+            LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
+        return LIBRARY
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".libsegsum.{os.getpid()}.so"
+    res = subprocess.run(build_command(tmp), capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
+    os.replace(tmp, LIBRARY)
     build_log = res.stdout + res.stderr
-    return out
+    return LIBRARY
 
 
 _ENTRY = re.compile(r"segsum_kernelI([fdx])Li(\d)EE")
@@ -246,7 +239,7 @@ def _library():
             lib = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.tidb_segsum.argtypes = [i, p, p, p, i, p, ll, i, i, p,
-                                        i, i, i, i, i, i]
+                                        i, i, i, i, i]
             lib.tidb_segsum.restype = i
             lib.tidb_segsum_device_limits.argtypes = [i, ctypes.POINTER(i)]
             lib.tidb_segsum_device_limits.restype = i
@@ -286,8 +279,10 @@ _plans_mu = threading.Lock()
 def plan_for(dtype: torch.dtype, num_segments: int, k: int, mask_mode: int,
              device: torch.device) -> LaunchPlan:
     """launch_plan for this shape class on `device`, cached per (dtype, C,
-    K, mask mode, device)."""
-    key = (dtype, num_segments, k, mask_mode, device.index or 0)
+    K, mask mode, device); a device without an index is the current one."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (dtype, num_segments, k, mask_mode, index)
     plan = _plans.get(key)
     if plan is None:
         with _plans_mu:
@@ -325,33 +320,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def launch(v: torch.Tensor, ids: torch.Tensor, valid, mask_mode: int,
-           out: torch.Tensor, plan: LaunchPlan) -> None:
-    """Launches the kernel with `plan` on checked, contiguous CUDA tensors
-    (v [n, K] with n >= 1, out [C, K] zeroed) and counts the launch."""
-    global launches
-    lib = _library()
-    n, k = v.shape
-    v, ids = _aligned(v), _aligned(ids)
-    if valid is not None:
-        valid = _aligned(valid)
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        rc = lib.tidb_segsum(
-            _DTYPE_CODES[v.dtype], v.data_ptr(), ids.data_ptr(),
-            valid.data_ptr() if valid is not None else None, mask_mode,
-            out.data_ptr(), n, k, plan.segments, stream, plan.window,
-            plan.tile, plan.stages, plan.threads, plan.grid(n), plan.smem)
-    _check(lib, rc, "kernel launch")
-    launches += 1
-
-
 def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
                 valid: torch.Tensor | None = None):
     """values [n] or [n, K] (float32, float64 or int64), ids [n] int32,
     valid None, [n] or [n, K] bool -> [num_segments] or
     [num_segments, K] sums of the live values per segment. A CPU tensor
     takes segment_sum_plain; a CUDA tensor launches the kernel."""
+    global launches
     if values.device.type == "cpu":
         return segment_sum_plain(values, ids, num_segments, valid)
     if values.device.type != "cuda":
@@ -392,5 +367,17 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
     plan = plan_for(v.dtype, num_segments, k, mode, v.device)
     out = torch.zeros((num_segments, k), dtype=v.dtype, device=v.device)
     if n:
-        launch(v, ids, valid, mode, out, plan)
+        lib = _library()
+        v, ids = _aligned(v), _aligned(ids)
+        if valid is not None:
+            valid = _aligned(valid)
+        with torch.cuda.device(v.device):
+            stream = torch.cuda.current_stream(v.device).cuda_stream
+            rc = lib.tidb_segsum(
+                _DTYPE_CODES[v.dtype], v.data_ptr(), ids.data_ptr(),
+                valid.data_ptr() if valid is not None else None, mode,
+                out.data_ptr(), n, k, num_segments, stream, plan.window,
+                plan.tile, plan.threads, plan.grid(n), plan.smem)
+        _check(lib, rc, "kernel launch")
+        launches += 1
     return out[:, 0] if one_d else out
