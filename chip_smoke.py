@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py [--sf 10] [--seed 42]
+    python3 chip_smoke.py [--sf 10] [--seed 42] [--profile]
 
 Phases, one JSON line each:
   env     torch and CUDA versions, the card's name and power limit
@@ -11,15 +11,25 @@ Phases, one JSON line each:
           scale factor --sf, cold (with transfers) and hot (columns resident
           on the card), each held exactly against a numpy truth; the
           kernels' launch counts are read around each run
+  q3, q5  TPC-H Q3 and Q5 (run_q3, run_q5) at the same scale factor over
+          the same generated tables, twice each, held exactly against
+          numpy truths (Q3 in every group before its TopN too); the phase
+          asserts the segment-sum kernel launched, the lineitem join took
+          the hybrid path, Q5's fused fragment dispatched, no fallback, and
+          no host sync inside the first JoinKernel / ProbeAggKernel /
+          HashAggKernel dispatch of the run
   kernel  each kernel against its plain torch version on the card, over
-          dtypes, masks and shapes (checked before q1), then its device
-          time at the main path's shapes
-          (tidb_tpu_torch/benchmarks/segsum_bench.py: Q1's own calls, and
-          the same calls with spread ids) beside its host time per call,
-          the plain version, one PyTorch library call and the bound; timed
-          after q1, since launches slow down in a process that
-          torch.profiler has traced
-  kernels one line listing every kernel with its parity and times
+          dtypes, masks and shapes (checked before q1); then, at every
+          shape the cold Q1 run and the first Q3 and Q5 runs gave it (their
+          calls recorded by segsum_bench.record_calls), held again on those
+          very inputs and timed: device time beside its host time per
+          call, the plain version, one PyTorch library call and the bound;
+          timed after the queries, since launches slow down in a process
+          that torch.profiler has traced
+  kernels one line listing every kernel at each of those shapes, with its
+          launches there on its path, its parity and its times
+With --profile, each of q1, q3 and q5 adds torch.profiler tables of one
+more run: device time by kernel, host time by op, device idle share.
 The card's name and power limit (as nvidia-smi gives them) stand on a
 line of their own, and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -30,8 +40,10 @@ without the rest of the repository beside it, it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -221,14 +233,22 @@ def sync_free_dispatch(chunk, dev) -> None:
     k.finalize(fresh, pending)
 
 
-def run_q1_phase(args, dev) -> dict:
+def generate(args):
+    """ScaledTpch(--sf) once, and the scan chunks of all six tables, shared
+    by the q1, q3 and q5 phases. -> (data, tables, seconds)."""
     from tidb_tpu_torch.benchmarks import tpch
-    from tidb_tpu_torch.executor.agg import run_q1
-    from tidb_tpu_torch.ops import segsum
     t0 = time.perf_counter()
     d = tpch.ScaledTpch(args.sf, args.seed)
-    chunks = tpch.lineitem_chunks(d, 1 << 18)
-    gen_s = time.perf_counter() - t0
+    tables = tpch.table_chunks(d, tpch.QUERY_TABLES["q5"], 1 << 18)
+    return d, tables, time.perf_counter() - t0
+
+
+def run_q1_phase(args, dev, d, chunks, gen_s, recorded) -> dict:
+    """Q1 cold and hot; the cold run's segment_sum calls go to
+    recorded["q1"] (segsum_bench.record_calls)."""
+    from tidb_tpu_torch.benchmarks import segsum_bench, tpch
+    from tidb_tpu_torch.executor.agg import run_q1
+    from tidb_tpu_torch.ops import segsum
     t0 = time.perf_counter()
     truth = tpch.q1_truth(d)
     truth_s = time.perf_counter() - t0
@@ -241,9 +261,13 @@ def run_q1_phase(args, dev) -> dict:
     for name in ("cold", "hot"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        segsum.launches = 0
-        res = run_q1(device=dev, chunks=chunks)
-        launches = segsum.launches
+        with (segsum_bench.record_calls() if name == "cold"
+              else contextlib.nullcontext()) as rec:
+            segsum.launches = 0
+            res = run_q1(device=dev, chunks=chunks)
+            launches = segsum.launches
+        if rec is not None:
+            recorded["q1"] = recorded_path("q1", rec, launches)
         if res.rows != truth:
             raise AssertionError(f"q1 {name}: rows differ from the numpy "
                                  f"truth:\n{res.rows}\n{truth}")
@@ -264,22 +288,149 @@ def run_q1_phase(args, dev) -> dict:
     out["rows"] = [[str(x) for x in r] for r in truth]
     if args.profile:
         from tidb_tpu_torch.chunk import Chunk
-        out["profile_hot"] = profile_q1(chunks, dev)
+        out["profile_hot"] = profile_run(
+            lambda: run_q1(device=dev, chunks=chunks))
         # fresh Chunk objects carry no device memo: every column copies
-        out["profile_cold"] = profile_q1([Chunk(c.columns) for c in chunks],
-                                         dev)
+        out["profile_cold"] = profile_run(lambda: run_q1(
+            device=dev, chunks=[Chunk(c.columns) for c in chunks]))
     return out
 
 
-def profile_q1(chunks, dev) -> dict:
-    """One more Q1 run under torch.profiler: device time by kernel, host
-    time by op, and the device's busy share of the run's wall time (the
-    profiler's own overhead is in that wall time)."""
+class SyncFreeFirstDispatch:
+    """Runs the first call of each wrapped `dispatch` method under
+    torch.cuda.set_sync_debug_mode("error"), so a host sync inside it
+    raises; records which classes were checked."""
+
+    def __init__(self, *classes):
+        self.classes = classes
+        self.checked = []
+
+    def __enter__(self):
+        self.saved = [(cls, cls.dispatch) for cls in self.classes]
+        for cls, orig in self.saved:
+            def wrapped(obj, *a, _cls=cls, _orig=orig, **kw):
+                if _cls.__name__ in self.checked:
+                    return _orig(obj, *a, **kw)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = _orig(obj, *a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                self.checked.append(_cls.__name__)
+                return out
+            cls.dispatch = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self.saved:
+            cls.dispatch = orig
+        return False
+
+
+def recorded_path(path, rec, launches):
+    """A run's recorded segment_sum calls, which must account for every
+    launch of the run."""
+    if rec.calls() != launches:
+        raise AssertionError(f"{path}: recorded {rec.calls()} segment_sum "
+                             f"calls, {launches} launches")
+    return rec
+
+
+def run_query_phase(name, args, dev, d, tables, recorded) -> dict:
+    """`name` (q3 or q5) twice over the shared tables, each run held
+    exactly against the numpy truth (Q3 also in every group before its
+    TopN), with the phase's assertions; the first run's segment_sum
+    calls go to recorded[name]."""
+    from tidb_tpu_torch.benchmarks import programs_bench, segsum_bench, tpch
+    from tidb_tpu_torch.executor import agg
+    from tidb_tpu_torch.ops import fragment, hashagg, join, segsum
+    run = {"q3": agg.run_q3, "q5": agg.run_q5}[name]
+    programs = programs_bench.capture()
+    t0 = time.perf_counter()
+    truth = {"q3": tpch.q3_truth, "q5": tpch.q5_truth}[name](d)
+    groups = tpch.q3_groups_truth(d) if name == "q3" else None
+    truth_s = time.perf_counter() - t0
+    qtables = {t: tables[t] for t in tpch.QUERY_TABLES[name]}
+    nrows = sum(d.counts[t] for t in tpch.QUERY_TABLES[name])
+    out = {"phase": name, "sf": args.sf, "seed": args.seed,
+           "input_rows": nrows, "superchunk_rows": 1 << 18,
+           "truth_s": truth_s, "runs": []}
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with SyncFreeFirstDispatch(join.JoinKernel, fragment.ProbeAggKernel,
+                                   hashagg.HashAggKernel) as sync_check, \
+                (programs if i == 1 else segsum_bench.record_calls()) as rec:
+            segsum.launches = 0
+            res = run(device=dev, tables=qtables)
+            launches = segsum.launches
+        if i == 0:
+            recorded[name] = recorded_path(name, rec, launches)
+        st = res.stats
+        if res.rows != truth:
+            raise AssertionError(f"{name} run {i}: rows differ from the "
+                                 f"numpy truth:\n{res.rows}\n{truth}")
+        if groups is not None and sorted(res.groups) != groups:
+            raise AssertionError(
+                f"{name} run {i}: the HashAgg's {len(res.groups)} groups "
+                f"differ from the numpy truth's {len(groups)}")
+        if launches <= 0:
+            raise AssertionError(f"{name}: segment-sum kernel never "
+                                 "launched")
+        if st.join_paths.get("lineitem") != "hybrid":
+            raise AssertionError(f"{name}: the lineitem join took "
+                                 f"{st.join_paths}, not the hybrid path")
+        if name == "q5" and not st.fused_dispatches:
+            raise AssertionError("q5: the fused fragment never dispatched")
+        if st.fallbacks:
+            raise AssertionError(f"{name}: fallbacks {st.fallback_reasons}")
+        need = {"JoinKernel"} | ({"ProbeAggKernel"} if name == "q5"
+                                 else {"HashAggKernel"})
+        if not need <= set(sync_check.checked):
+            raise AssertionError(f"{name}: sync-free dispatch checked only "
+                                 f"{sync_check.checked}")
+        out["runs"].append({
+            "seconds": res.seconds, "rows_per_s": nrows / res.seconds,
+            "segsum_launches": launches, "groups": len(res.groups),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "host_max_rss_kb": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss,
+            "sync_free_dispatch": sync_check.checked,
+            "stats": {k: v for k, v in vars(st).items()}})
+    out["rows"] = [[str(x) for x in r] for r in truth]
+    # the torch programs of the second run, replayed at its shapes
+    out["programs"] = [
+        {"program": prog, "shape": list(shape), "calls_per_run": calls,
+         "calls_per_run_all_shapes": sum(
+             n for (p2, _s), (_o, _a, n) in programs.calls.items()
+             if p2 == prog),
+         **programs_bench.time_program(prog, obj, a)}
+        for prog, shape, obj, a, calls in programs.most_called()]
+    if args.profile:
+        out["profile"] = profile_run(lambda: run(device=dev, tables=qtables))
+    return out
+
+
+def profile_run(fn) -> dict:
+    """One more run of `fn` (a run_q* call) under torch.profiler and
+    cProfile: device time by kernel, host time by torch op and by Python
+    function (numpy's work shows under its callers), and the device's busy
+    share of the run's wall time (both profilers' overhead is in it)."""
+    import cProfile
+    import pstats
     from torch.profiler import ProfilerActivity, profile
-    from tidb_tpu_torch.executor.agg import run_q1
+    py = cProfile.Profile()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        res = run_q1(device=dev, chunks=chunks)
+        py.enable()
+        try:
+            res = fn()
+        finally:
+            py.disable()
+    funcs = sorted(((tt, ct, n, f"{os.path.basename(f)}:{line}:{name}")
+                    for (f, line, name), (_cc, n, tt, ct, _c)
+                    in pstats.Stats(py).stats.items()), reverse=True)
     device, host = [], []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -301,16 +452,20 @@ def profile_q1(chunks, dev) -> dict:
             "top": [{"kernel": k[:90], "calls": c, "device_ms": us / 1e3}
                     for us, k, c in device[:12]],
             "top_host": [{"op": k[:60], "calls": c, "self_cpu_ms": us / 1e3}
-                         for us, k, c in host[:12]]}
+                         for us, k, c in host[:12]],
+            "top_python": [{"function": k[:80], "calls": n, "self_s": tt,
+                            "cumulative_s": ct}
+                           for tt, ct, n, k in funcs[:20]]}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
-                    help="TPC-H scale factor of Q1's lineitem (default 10)")
+                    help="TPC-H scale factor (default 10)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", action="store_true",
-                    help="add one hot Q1 run under torch.profiler")
+                    help="add one more run of each query under "
+                         "torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -329,27 +484,39 @@ def main() -> int:
     emit(build_phase(root))
 
     parity = check_segsum(dev)
-    q1 = run_q1_phase(args, dev)
-    emit(q1)
+    d, tables, gen_s = generate(args)
+    recorded = {}
+    emit(run_q1_phase(args, dev, d, tables["lineitem"], gen_s, recorded))
+    for name in ("q3", "q5"):
+        emit(run_query_phase(name, args, dev, d, tables, recorded))
 
+    # the kernel at every shape the three paths gave it, on their own
+    # recorded inputs: held against the plain version, then timed
     from tidb_tpu_torch.benchmarks import segsum_bench
-    q1_inputs = segsum_bench.q1_inputs(dev)
-    shapes = {"q1": q1_inputs,
-              "spread": segsum_bench.spread_inputs(q1_inputs)}
-    timing = {name: segsum_bench.time_shape(inputs)
-              for name, inputs in shapes.items()}
+    entries = []
+    for path, rec in recorded.items():
+        for (n, k, c, dtype, mask), ent in rec.shapes.items():
+            where = f"{path}: {n}x{k} {dtype}, C={c}, {mask} mask"
+            worst = {"float32": 0.0, "float64": 0.0, "int64": 0}
+            for v, i, m, _c in ent["inputs"]:
+                hold(segsum.segment_sum(v, i, c, valid=m), v, i, c, m,
+                     where, worst)
+            entries.append((where, path, ent["calls"], max(worst.values()),
+                            len(ent["inputs"]),
+                            segsum_bench.time_shape(ent["inputs"])))
     emit({"phase": "kernel", "name": "segment_sum", **parity,
-          "timing": timing})
+          "timing": {where: {"launches": calls, "inputs_held": held, **t}
+                     for where, _p, calls, _e, held, t in entries}})
 
     emit({"kernels": [{
-        "name": f"segment_sum ({name} ids)", "route": "cuda",
+        "name": f"segment_sum ({where})", "route": "cuda",
         "source": "tidb_tpu_torch/csrc/segsum.cu",
         "replaces": "tidb_tpu/ops/pallas_agg.py:147",
-        "launches": q1["cold"]["segsum_launches"],
-        "max_abs_err": parity["max_abs_err"],
+        "launches": calls, "path": path, "max_abs_err": err,
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"]} for name, t in timing.items()]})
+        "library_ms": t["library_ms"]}
+        for where, path, calls, err, _h, t in entries]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

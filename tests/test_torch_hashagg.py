@@ -317,3 +317,18 @@ def test_hash_keys_bit_identical(kind):
         got = ph._hash_keys([(torch.from_numpy(d), torch.from_numpy(v))
                              for d, v in lanes], n, seed, "cpu")
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cond_direct_wrapped_codes_stay_in_table():
+    """Two int keys whose span product passes 2^63: the runtime-selected
+    table takes the hash branch, and the direct branch the port also
+    computes (torch has no lax.cond) wraps its int64 codes negative; its
+    scatter must stay inside the table instead of indexing out of it (a
+    device assert on CUDA). The smallest input that showed it."""
+    k1 = np.array([0, 1 << 31, 5], np.int64)
+    k2 = np.array([0, 1 << 32, 7], np.int64)
+    ch = Chunk([Column(INT, k1, np.ones(3, bool)),
+                Column(INT, k2, np.ones(3, bool)),
+                Column(INT, np.array([1, 2, 3], np.int64), np.ones(3, bool))])
+    both([ch], None, [col(0, INT, "a"), col(1, INT, "b")],
+         [AggDesc(AggFunc.SUM, col(2, INT))])

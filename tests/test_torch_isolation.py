@@ -79,12 +79,17 @@ def test_entry_points_default_to_cuda():
     _no_cuda()
     from tidb_tpu_torch.benchmarks import tpch
     from tidb_tpu_torch.chunk import Chunk
-    from tidb_tpu_torch.executor.agg import run_agg, run_q1
-    from tidb_tpu_torch.ops import hashagg, runtime
+    from tidb_tpu_torch.executor.agg import run_agg, run_q1, run_q3, run_q5
+    from tidb_tpu_torch.ops import fragment, hashagg, hybrid, join, runtime
     flt, group_exprs, aggs = tpch.q1_plan()
     ch = tpch.lineitem_chunks(tpch.ScaledTpch(0.002, 1), 4096)[0]
     calls = [
         lambda: run_q1(sf=0.002),
+        lambda: run_q3(sf=0.002),
+        lambda: run_q5(sf=0.002),
+        lambda: join.JoinKernel(1),
+        lambda: fragment.fragment_kernel_for(1, 5, 10, group_exprs, aggs),
+        lambda: hybrid.partitioned_agg(ch, flt, group_exprs, aggs),
         lambda: run_agg([ch], flt, group_exprs, aggs),
         lambda: hashagg.kernel_for(flt, group_exprs, aggs),
         lambda: hashagg.HashAggKernel(flt, group_exprs, aggs),

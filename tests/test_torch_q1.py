@@ -111,6 +111,28 @@ def test_run_q1_matches_reference(jax_q1_plan, data):
     assert again.rows == want
 
 
+def test_record_calls_captures_each_segment_sum_call(data):
+    """segsum_bench.record_calls (which chip_smoke uses to hold the kernel
+    at the path's shapes) sees one stacked call per superchunk, keeps
+    clones of the first `keep`, and restores segment_sum on exit."""
+    from tidb_tpu_torch.benchmarks.segsum_bench import record_calls
+    from tidb_tpu_torch.ops import segsum
+    real = segsum.segment_sum
+    chunks = ptpch.lineitem_chunks(data, ROWS)
+    with record_calls(keep=2) as rec:
+        res = run_q1(device="cpu", chunks=chunks, superchunk_rows=ROWS)
+    assert segsum.segment_sum is real
+    assert rec.calls() == res.stats.device_batches == 3
+    for (n, k, c, dtype, mask), ent in rec.shapes.items():
+        assert (k, dtype, mask) == (12, "int64", "lane")
+        assert len(ent["inputs"]) == min(ent["calls"], 2)
+        for v, i, m, cc in ent["inputs"]:
+            assert v.shape == (n, k) and m.shape == v.shape and cc == c
+            torch.testing.assert_close(
+                segsum.segment_sum(v, i, c, valid=m),
+                segsum.segment_sum_plain(v, i, c, valid=m), rtol=0, atol=0)
+
+
 def test_run_q1_one_superchunk_equals_many(data):
     """Merging partials across superchunks gives the rows of one pass."""
     one = run_q1(device="cpu", chunks=ptpch.lineitem_chunks(data, 1 << 15),

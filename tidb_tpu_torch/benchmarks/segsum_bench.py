@@ -7,8 +7,11 @@ per-lane mask, C = 4096):
   q1      the inputs of Q1's own segment_sum calls, captured from the
           port's Q1 kernel over generated lineitem superchunks: six live
           slots and about 1.4 % of rows at slot C-1 (the filtered rows)
-  spread  the same values and masks with ids uniform over [0, C): the
-          hashed group table the Q3/Q5 operators will send
+  spread  the same values and masks with ids uniform over [0, C), a
+          stand-in for a hashed group table
+`record_calls` captures the calls of any run the same way; chip_smoke.py
+uses it to hold and time the kernel at each shape the Q1, Q3 and Q5
+paths give it.
 Inputs rotate over four superchunks, so the working set exceeds the
 50 MB L2 (a superchunk arrives cold). Device time per call comes from
 torch.profiler's device events (the kernel's own, and all device work of
@@ -41,31 +44,62 @@ Q1_SUPERCHUNK = 1 << 18
 ROUNDS = 2                        # turns of (baseline, kernel, kernel, baseline)
 
 
+class record_calls:
+    """While active, records the calls of ops/segsum.segment_sum by shape:
+    shapes[(rows, lanes, C, dtype, mask mode)] = {"calls": count,
+    "inputs": clones of the (values, ids, valid, C) of the first `keep`
+    calls}, the inputs time_shape takes. The clones are enqueued on the
+    inputs' stream and add no host sync."""
+
+    def __init__(self, keep: int = 4):
+        self.keep = keep
+        self.shapes: dict = {}
+        self._real = None
+
+    def __enter__(self):
+        from tidb_tpu_torch.ops import segsum
+        self._real = real = segsum.segment_sum
+
+        def spy(values, ids, num_segments, valid=None):
+            mode = "none" if valid is None else \
+                "lane" if valid.shape == values.shape else "row"
+            key = (*values.shape, num_segments,
+                   str(values.dtype).removeprefix("torch."), mode)
+            ent = self.shapes.setdefault(key, {"calls": 0, "inputs": []})
+            ent["calls"] += 1
+            if len(ent["inputs"]) < self.keep:
+                ent["inputs"].append((
+                    values.clone(), ids.clone(),
+                    None if valid is None else valid.clone(), num_segments))
+            return real(values, ids, num_segments, valid)
+        segsum.segment_sum = spy
+        return self
+
+    def __exit__(self, *exc):
+        from tidb_tpu_torch.ops import segsum
+        segsum.segment_sum = self._real
+        return False
+
+    def calls(self) -> int:
+        return sum(ent["calls"] for ent in self.shapes.values())
+
+
 def q1_inputs(dev, count: int = 4, seed: int = 42):
     """Captures the (values, ids, valid, C) of Q1's segment_sum call on
     `count` generated lineitem superchunks of 2^18 rows."""
     from tidb_tpu_torch.benchmarks import tpch
-    from tidb_tpu_torch.ops import segsum
     from tidb_tpu_torch.ops.hashagg import kernel_for
     d = tpch.ScaledTpch(0.05 * count, seed)
     chunks = tpch.lineitem_chunks(d, Q1_SUPERCHUNK)[:count]
     kernel = kernel_for(*tpch.q1_plan(), device=dev)
-    seen = []
-    real = segsum.segment_sum
-
-    def spy(values, ids, num_segments, valid=None):
-        seen.append((values, ids, valid, num_segments))
-        return real(values, ids, num_segments, valid)
-    segsum.segment_sum = spy
-    try:
+    with record_calls(keep=count) as rec:
         for c in chunks:
             kernel.finalize(c, kernel.dispatch(c))
-    finally:
-        segsum.segment_sum = real
-    if len(seen) != count:
-        raise AssertionError(f"expected one segment_sum call per superchunk, "
-                             f"saw {len(seen)}")
-    return seen
+    if len(rec.shapes) != 1 or rec.calls() != count:
+        raise AssertionError(f"expected one segment_sum call per superchunk "
+                             f"at one shape, saw {list(rec.shapes)}")
+    (ent,) = rec.shapes.values()
+    return ent["inputs"]
 
 
 def spread_inputs(inputs, seed: int = 7):

@@ -1,12 +1,15 @@
-"""Scaled TPC-H lineitem for the port's Q1 path.
+"""Scaled TPC-H for the port's Q1, Q3 and Q5 paths.
 
 The numpy generator is a copy of the JAX package's
 benchmarks/tpch.ScaledTpch with the same draw order, so one `seed` gives
 the same tables in both packages. Row counts follow the TPC-H spec's
 cardinalities (sf=1 ~ 6M lineitem rows). Where the JAX package ingests
 the tables through its storage layer and SQL front end, the port (which
-has neither yet) builds the lineitem scan chunks directly and carries
-the plan that the JAX planner pushes to the coprocessor for Q1.
+has neither yet) builds each table's scan chunks directly, in the JAX
+package's DDL column order, and carries the plans that the JAX planner
+builds: for Q1 the partial aggregation it pushes to the coprocessor, for
+Q3 and Q5 the left-deep join trees (build side = right child) under one
+HashAgg, with their host tails (TopN, Sort) as plain functions.
 
 Overflow: Q1's sum_charge lane is scaled by 10^6; at sf 10 one group's
 sum comes to about 1.5e18, under int64's 9.2e18. At sf 100 it would
@@ -24,8 +27,11 @@ from tidb_tpu_torch.sqltypes import (FieldType, TypeCode, date_to_micros,
                                      new_datetime_field, new_decimal_field,
                                      new_int_field, parse_datetime)
 
-__all__ = ["ScaledTpch", "Q1", "LINEITEM_COLUMNS", "lineitem_chunks",
-           "q1_plan", "q1_truth"]
+__all__ = ["ScaledTpch", "Q1", "Q3", "Q5", "TABLE_COLUMNS",
+           "LINEITEM_COLUMNS", "QUERY_TABLES", "PLANS", "table_chunks",
+           "lineitem_chunks", "q1_plan", "q1_truth", "q3_plan", "q3_finish",
+           "q3_truth", "q3_groups_truth", "q5_plan", "q5_finish",
+           "q5_truth"]
 
 REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 NATIONS = [  # (name, region_idx) — the 25 spec nations
@@ -111,50 +117,146 @@ ORDER BY l_returnflag, l_linestatus
 """
 
 
+Q3 = """
+SELECT l_orderkey,
+       SUM(l_extendedprice * (1 - l_discount)) AS revenue,
+       o_orderdate, o_shippriority
+FROM customer, orders, lineitem
+WHERE c_mktsegment = 'BUILDING'
+  AND c_custkey = o_custkey
+  AND l_orderkey = o_orderkey
+  AND o_orderdate < DATE '1995-03-15'
+  AND l_shipdate > DATE '1995-03-15'
+GROUP BY l_orderkey, o_orderdate, o_shippriority
+ORDER BY revenue DESC, o_orderdate
+LIMIT 10
+"""
+
+Q5 = """
+SELECT n_name,
+       SUM(l_extendedprice * (1 - l_discount)) AS revenue
+FROM customer, orders, lineitem, supplier, nation, region
+WHERE c_custkey = o_custkey
+  AND l_orderkey = o_orderkey
+  AND l_suppkey = s_suppkey
+  AND c_nationkey = s_nationkey
+  AND s_nationkey = n_nationkey
+  AND n_regionkey = r_regionkey
+  AND r_name = 'ASIA'
+  AND o_orderdate >= DATE '1994-01-01'
+  AND o_orderdate < DATE '1994-01-01' + INTERVAL '1' YEAR
+GROUP BY n_name
+ORDER BY revenue DESC
+"""
+
+# per-query input-row accounting (the tables each query scans)
+QUERY_TABLES = {
+    "q1": ["lineitem"],
+    "q3": ["lineitem", "orders", "customer"],
+    "q5": ["lineitem", "orders", "customer", "supplier", "nation",
+           "region"],
+}
+
 _DEC = new_decimal_field(flen=15, frac=2)
 _CHAR1 = FieldType(TypeCode.STRING, flen=1)
-_BIGINT = new_int_field()
-
-# lineitem's leading columns in DDL order, as the scan decodes them: Q1
-# reads positions 3-9, and its plan refers to them by these positions
-LINEITEM_COLUMNS = [
-    ("l_id", _BIGINT), ("l_orderkey", _BIGINT), ("l_suppkey", _BIGINT),
-    ("l_quantity", _DEC), ("l_extendedprice", _DEC), ("l_discount", _DEC),
-    ("l_tax", _DEC), ("l_returnflag", _CHAR1), ("l_linestatus", _CHAR1),
-    ("l_shipdate", FieldType(TypeCode.DATE)),
-]
+_BIGINT = FieldType(TypeCode.LONGLONG)     # the DDL's BIGINT
+_DATE = FieldType(TypeCode.DATE)
 
 
-def lineitem_chunks(d: ScaledTpch, rows: int = 1 << 18) -> list[Chunk]:
-    """lineitem as Chunks of `rows` rows (the last one shorter), with the
-    columns of LINEITEM_COLUMNS. Integer columns are views of the
-    generator's arrays; decimals are scaled ints (frac 2) and dates epoch
-    micros, as the JAX package loads them. The two CHAR(1) columns carry
-    their dictionary encoding from the generator's index arrays, set as
-    each column's dict_encode memo, so no per-row encode pass runs."""
+def _varchar(n: int) -> FieldType:
+    return FieldType(TypeCode.VARCHAR, flen=n)
+
+
+# every table's columns in the JAX package's DDL order (benchmarks/tpch.DDL),
+# as its scan decodes them; the plans refer to columns by these positions
+TABLE_COLUMNS = {
+    "region": [("r_regionkey", _BIGINT), ("r_name", _varchar(25))],
+    "nation": [("n_nationkey", _BIGINT), ("n_name", _varchar(25)),
+               ("n_regionkey", _BIGINT)],
+    "customer": [("c_custkey", _BIGINT), ("c_nationkey", _BIGINT),
+                 ("c_mktsegment", _varchar(10))],
+    "supplier": [("s_suppkey", _BIGINT), ("s_nationkey", _BIGINT)],
+    "orders": [("o_orderkey", _BIGINT), ("o_custkey", _BIGINT),
+               ("o_orderdate", _DATE), ("o_shippriority", _BIGINT),
+               ("o_orderpriority", _varchar(15))],
+    "lineitem": [
+        ("l_id", _BIGINT), ("l_orderkey", _BIGINT), ("l_suppkey", _BIGINT),
+        ("l_quantity", _DEC), ("l_extendedprice", _DEC),
+        ("l_discount", _DEC), ("l_tax", _DEC), ("l_returnflag", _CHAR1),
+        ("l_linestatus", _CHAR1), ("l_shipdate", _DATE),
+        ("l_commitdate", _DATE), ("l_receiptdate", _DATE)],
+}
+LINEITEM_COLUMNS = TABLE_COLUMNS["lineitem"]
+
+
+def _table_lanes(d: ScaledTpch, table: str):
+    """-> ([int64 lane or (index lane, dictionary) per column], rows)."""
+    if table == "region":
+        return [np.arange(len(REGIONS)), (np.arange(len(REGIONS)),
+                                          REGIONS)], len(REGIONS)
+    if table == "nation":
+        n = len(NATIONS)
+        return [np.arange(n), (np.arange(n), [nm for nm, _r in NATIONS]),
+                np.array([r for _nm, r in NATIONS])], n
+    if table == "customer":
+        return [d.c_custkey, d.c_nationkey,
+                (d.c_mktsegment, SEGMENTS)], d.counts["customer"]
+    if table == "supplier":
+        return [d.s_suppkey, d.s_nationkey], d.counts["supplier"]
+    if table == "orders":
+        return [d.o_orderkey, d.o_custkey, _days_us(d.o_orderdate),
+                d.o_shippriority, (d.o_orderpriority, PRIORITIES)], \
+            d.counts["orders"]
     n = d.counts["lineitem"]
+    return [np.arange(n), d.l_orderkey, d.l_suppkey, d.l_quantity * 100,
+            d.l_extendedprice, d.l_discount, d.l_tax,
+            (d.l_returnflag, FLAGS), (d.l_linestatus, STATUSES),
+            _days_us(d.l_shipdate), _days_us(d.l_commitdate),
+            _days_us(d.l_receiptdate)], n
+
+
+def _chunks_of(table: str, lanes, n: int, rows: int) -> list[Chunk]:
+    """Integer columns are views of the generator's arrays; decimals are
+    scaled ints (frac 2) and dates epoch micros, as the JAX package loads
+    them. String columns carry their dictionary encoding from the
+    generator's index arrays, set as each column's dict_encode memo, so
+    no per-row encode pass runs."""
     ones = np.ones(n, dtype=bool)
-    lanes = [np.arange(n, dtype=np.int64), d.l_orderkey, d.l_suppkey,
-             d.l_quantity * 100, d.l_extendedprice, d.l_discount, d.l_tax,
-             d.l_returnflag, d.l_linestatus, _days_us(d.l_shipdate)]
-    lanes = [np.asarray(a, dtype=np.int64) for a in lanes]
-    dicts = {7: (np.array(FLAGS, dtype=object), FLAGS),
-             8: (np.array(STATUSES, dtype=object), STATUSES)}
+    cols_meta = []
+    for (_name, ft), lane in zip(TABLE_COLUMNS[table], lanes):
+        if isinstance(lane, tuple):
+            idx, values = lane
+            idx = np.asarray(idx, dtype=np.int64)
+            cols_meta.append((ft, idx, np.array(values, dtype=object),
+                              list(values)))
+        else:
+            cols_meta.append((ft, np.asarray(lane, dtype=np.int64), None,
+                              None))
     out = []
     for s in range(0, n, max(int(rows), 1)):
         e = min(n, s + rows)
         cols = []
-        for j, (_name, ft) in enumerate(LINEITEM_COLUMNS):
-            a = lanes[j][s:e]
-            if j in dicts:
-                strs, values = dicts[j]
-                c = Column(ft, strs[a], ones[s:e])
-                c._enc = (a, list(values))
+        for ft, a, strs, values in cols_meta:
+            if strs is None:
+                cols.append(Column(ft, a[s:e], ones[s:e]))
             else:
-                c = Column(ft, a, ones[s:e])
-            cols.append(c)
+                c = Column(ft, strs[a[s:e]], ones[s:e])
+                c._enc = (a[s:e], values)
+                cols.append(c)
         out.append(Chunk(cols))
     return out
+
+
+def table_chunks(d: ScaledTpch, tables, rows: int = 1 << 18) -> dict:
+    """{table: [Chunk]} for each named table, in chunks of `rows` rows
+    (the last one shorter), with the columns of TABLE_COLUMNS."""
+    return {t: _chunks_of(t, *_table_lanes(d, t), rows) for t in tables}
+
+
+def lineitem_chunks(d: ScaledTpch, rows: int = 1 << 18) -> list[Chunk]:
+    """lineitem as Chunks of `rows` rows with the columns of
+    LINEITEM_COLUMNS (Q1 reads positions 3-9)."""
+    return table_chunks(d, ["lineitem"], rows)["lineitem"]
 
 
 def q1_plan():
@@ -220,3 +322,178 @@ def q1_truth(d: ScaledTpch) -> list[tuple]:
             rows.append((flag, status, sq, sp, sd, sc, avg(sq, count),
                          avg(sp, count), avg(sdisc, count), count))
     return rows
+
+
+def _date_const(day: datetime.date, ft: FieldType = _DATE):
+    from tidb_tpu_torch.expression import Constant
+    return Constant(date_to_micros(day), ft)
+
+
+def _revenue_sum(price, disc):
+    """SUM(l_extendedprice * (1 - l_discount))."""
+    from tidb_tpu_torch.expression import (AggDesc, AggFunc, Constant, Op,
+                                           func)
+    one = Constant(1, new_int_field())
+    return AggDesc(AggFunc.SUM,
+                   func(Op.MUL, price, func(Op.MINUS, one, disc)))
+
+
+def _ref(schema, name: str):
+    """A ColumnRef to the column `name` of an operator's schema."""
+    from tidb_tpu_torch.expression import ColumnRef
+    j = next(i for i, c in enumerate(schema) if c.name == name)
+    return ColumnRef(j, schema[j].ft, name)
+
+
+Q3_CUTOFF = datetime.date(1995, 3, 15)
+Q5_FROM, Q5_TO = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
+
+
+def q3_plan():
+    """Q3's plan as the JAX planner builds it: HashAgg over
+    (customer [host filter c_mktsegment = 'BUILDING'] JOIN orders [pushed
+    o_orderdate < 1995-03-15] ON c_custkey = o_custkey) JOIN lineitem
+    [pushed l_shipdate > 1995-03-15] ON o_orderkey = l_orderkey, grouped
+    by (l_orderkey, o_orderdate, o_shippriority)."""
+    from tidb_tpu_torch.executor.agg import HashAgg
+    from tidb_tpu_torch.executor.join import HashJoin
+    from tidb_tpu_torch.executor.scan import TableScan
+    from tidb_tpu_torch.expression import Constant, Op, func
+    from tidb_tpu_torch.sqltypes import new_string_field
+    customer = TableScan("customer", TABLE_COLUMNS["customer"])
+    customer.host_filter = func(Op.EQ, customer.col("c_mktsegment"),
+                                Constant("BUILDING", new_string_field()))
+    orders = TableScan("orders", TABLE_COLUMNS["orders"])
+    orders.filter = func(Op.LT, orders.col("o_orderdate"),
+                         _date_const(Q3_CUTOFF))
+    lineitem = TableScan("lineitem", LINEITEM_COLUMNS)
+    lineitem.filter = func(Op.GT, lineitem.col("l_shipdate"),
+                           _date_const(Q3_CUTOFF))
+    co = HashJoin(customer, orders, [customer.col("c_custkey")],
+                  [orders.col("o_custkey")])
+    col = HashJoin(co, lineitem, [_ref(co.schema, "o_orderkey")],
+                   [lineitem.col("l_orderkey")])
+    s = col.schema
+    return HashAgg(col, [_ref(s, "l_orderkey"), _ref(s, "o_orderdate"),
+                         _ref(s, "o_shippriority")],
+                   [_revenue_sum(_ref(s, "l_extendedprice"),
+                                   _ref(s, "l_discount"))])
+
+
+def q3_finish(rows):
+    """Q3's host tail over the HashAgg rows (l_orderkey, o_orderdate,
+    o_shippriority, revenue): TopN 10 by revenue DESC, o_orderdate, then
+    the projection (l_orderkey, revenue, o_orderdate, o_shippriority).
+    Ties keep the HashAgg's key order."""
+    top = sorted(rows, key=lambda r: (-r[3], r[1]))[:10]
+    return [(k, rev, od, sp) for k, od, sp, rev in top]
+
+
+def _q3_groups(d: ScaledTpch):
+    """Every Q3 group from the generator's arrays in exact int64 numpy:
+    -> (l_orderkey ascending, revenue at frac 4, o_orderdate in epoch
+    micros per order)."""
+    cutoff = date_to_micros(Q3_CUTOFF)
+    building = d.c_mktsegment == SEGMENTS.index("BUILDING")
+    o_date = _days_us(d.o_orderdate)
+    o_ok = (o_date < cutoff) & building[d.o_custkey]
+    l_ok = (_days_us(d.l_shipdate) > cutoff) & o_ok[d.l_orderkey]
+    keys = d.l_orderkey[l_ok]
+    rev = (d.l_extendedprice[l_ok].astype(np.int64) *
+           (100 - d.l_discount[l_ok].astype(np.int64)))
+    order = np.argsort(keys, kind="stable")
+    keys, rev = keys[order], rev[order]
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    uk = keys[starts]
+    sums = np.add.reduceat(rev, starts) if keys.size else rev
+    return uk, sums, o_date
+
+
+def q3_groups_truth(d: ScaledTpch) -> list[tuple]:
+    """Q3's HashAgg output before its TopN, every group in the HashAgg's
+    layout (l_orderkey, o_orderdate in epoch micros, o_shippriority,
+    revenue at frac 4), sorted."""
+    uk, sums, o_date = _q3_groups(d)
+    return list(zip(uk.tolist(), o_date[uk].tolist(),
+                    d.o_shippriority[uk].tolist(), sums.tolist()))
+
+
+def q3_truth(d: ScaledTpch) -> list[tuple]:
+    """Q3's rows straight from the generator's arrays in exact int64
+    numpy, in run_q3's layout: (l_orderkey, revenue at frac 4,
+    o_orderdate in epoch micros, o_shippriority)."""
+    uk, sums, o_date = _q3_groups(d)
+    top = np.lexsort((uk, o_date[uk], -sums))[:10]
+    return [(int(uk[i]), int(sums[i]), int(o_date[uk[i]]),
+             int(d.o_shippriority[uk[i]])) for i in top]
+
+
+def q5_plan():
+    """Q5's plan as the JAX planner builds it: the FROM-order left-deep
+    tree customer JOIN orders [pushed 1994-01-01 <= o_orderdate <
+    1995-01-01] ON c_custkey = o_custkey, JOIN lineitem ON o_orderkey =
+    l_orderkey, JOIN supplier ON (l_suppkey, c_nationkey) = (s_suppkey,
+    s_nationkey), JOIN nation ON s_nationkey = n_nationkey, JOIN region
+    [host filter r_name = 'ASIA'] ON n_regionkey = r_regionkey, under a
+    HashAgg grouped by n_name."""
+    from tidb_tpu_torch.executor.agg import HashAgg
+    from tidb_tpu_torch.executor.join import HashJoin
+    from tidb_tpu_torch.executor.scan import TableScan
+    from tidb_tpu_torch.expression import Constant, Op, func
+    from tidb_tpu_torch.sqltypes import new_string_field
+    scans = {t: TableScan(t, TABLE_COLUMNS[t]) for t in
+             ("customer", "orders", "lineitem", "supplier", "nation",
+              "region")}
+    od = scans["orders"].col("o_orderdate")
+    scans["orders"].filter = func(
+        Op.AND, func(Op.GE, od, _date_const(Q5_FROM)),
+        # DATE '1994-01-01' + INTERVAL '1' YEAR folds to a DATETIME
+        func(Op.LT, od, _date_const(Q5_TO, new_datetime_field())))
+    scans["region"].host_filter = func(
+        Op.EQ, scans["region"].col("r_name"),
+        Constant("ASIA", new_string_field()))
+    tree = scans["customer"]
+    for right, lkeys, rkeys in (
+            ("orders", ["c_custkey"], ["o_custkey"]),
+            ("lineitem", ["o_orderkey"], ["l_orderkey"]),
+            ("supplier", ["l_suppkey", "c_nationkey"],
+             ["s_suppkey", "s_nationkey"]),
+            ("nation", ["s_nationkey"], ["n_nationkey"]),
+            ("region", ["n_regionkey"], ["r_regionkey"])):
+        scan = scans[right]
+        tree = HashJoin(tree, scan, [_ref(tree.schema, k) for k in lkeys],
+                        [scan.col(k) for k in rkeys])
+    s = tree.schema
+    return HashAgg(tree, [_ref(s, "n_name")],
+                   [_revenue_sum(_ref(s, "l_extendedprice"),
+                                   _ref(s, "l_discount"))])
+
+
+def q5_finish(rows):
+    """Q5's host tail: Sort by revenue DESC (ties keep n_name order)."""
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def q5_truth(d: ScaledTpch) -> list[tuple]:
+    """Q5's rows straight from the generator's arrays in exact int64
+    numpy, in run_q5's layout: (n_name, revenue at frac 4)."""
+    o_date = _days_us(d.o_orderdate)
+    o_ok = (o_date >= date_to_micros(Q5_FROM)) & \
+        (o_date < date_to_micros(Q5_TO))
+    s_nat = d.s_nationkey[d.l_suppkey]
+    c_nat = d.c_nationkey[d.o_custkey[d.l_orderkey]]
+    asia = np.array([r == REGIONS.index("ASIA") for _n, r in NATIONS])
+    m = o_ok[d.l_orderkey] & (s_nat == c_nat) & asia[s_nat]
+    rev = d.l_extendedprice[m].astype(np.int64) * \
+        (100 - d.l_discount[m].astype(np.int64))
+    nat = s_nat[m]
+    rows = []
+    for k in sorted(range(len(NATIONS)), key=lambda k: NATIONS[k][0]):
+        sel = nat == k
+        if sel.any():
+            rows.append((NATIONS[k][0], int(rev[sel].sum(dtype=np.int64))))
+    return q5_finish(rows)
+
+
+# query -> (plan builder, host tail) for executor/agg.run_q3 / run_q5
+PLANS = {"q3": (q3_plan, q3_finish), "q5": (q5_plan, q5_finish)}

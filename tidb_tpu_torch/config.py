@@ -15,7 +15,8 @@ import threading
 __all__ = ["get_var", "set_var", "session_overlay", "device_min_rows",
            "superchunk_rows", "pipeline_depth", "fused_scan_enabled",
            "encoded_exec_enabled", "fuse_fragments_enabled",
-           "direct_agg_slots", "UnknownVariableError"]
+           "direct_agg_slots", "join_partitions", "skew_threshold",
+           "UnknownVariableError"]
 
 
 class UnknownVariableError(Exception):
@@ -41,6 +42,12 @@ _DEFS: dict[str, tuple[str, int]] = {
     # cardinality bound of the direct-indexed partial-agg table; past it
     # the group-by degrades to the packed-sort hash table
     "tidb_tpu_direct_agg_slots": (_INT, 4096),
+    # radix fan-out of the partitioned hybrid hash join/agg
+    # (ops/hybrid.py); 0/1 disables partitioning
+    "tidb_tpu_join_partitions": (_INT, 8),
+    # heavy-hitter threshold in rows: a join key this frequent on either
+    # side routes to the hybrid join's broadcast lane; 0 disables it
+    "tidb_tpu_skew_threshold": (_INT, 1 << 15),
 }
 
 _vals: dict[str, int] = {}
@@ -138,3 +145,11 @@ def fuse_fragments_enabled() -> bool:
 
 def direct_agg_slots() -> int:
     return _read("tidb_tpu_direct_agg_slots")
+
+
+def join_partitions() -> int:
+    return max(0, _read("tidb_tpu_join_partitions"))
+
+
+def skew_threshold() -> int:
+    return max(0, _read("tidb_tpu_skew_threshold"))

@@ -1,1 +1,53 @@
-"""Executors that drive the device operators."""
+"""Executors that drive the device operators.
+
+Operators take a context (`ExecContext`) in `chunks(ctx)`, as the JAX
+package's executors do: here it carries the device the run's kernels go
+to, the table chunks the scans read, and the run's counters (ExecStats).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+__all__ = ["ExecStats", "ExecContext"]
+
+
+@dataclass
+class ExecStats:
+    """Counters of one run, summed over its operators."""
+
+    superchunks: int = 0        # agg batches (device or host)
+    device_batches: int = 0     # agg batches aggregated on the device
+    host_batches: int = 0       # below tidb_tpu_device_min_rows (designed)
+    escalations: int = 0        # agg capacity re-plans
+    join_dispatches: int = 0    # pipelined-probe matcher dispatches
+    host_match_batches: int = 0  # probe batches too small for a dispatch
+    hybrid_joins: int = 0       # joins the partitioned hybrid path carried
+    partition_uploads: int = 0  # hybrid build partitions uploaded
+    hybrid_tasks: int = 0       # hybrid (probe batch x partition) dispatches
+    fused_dispatches: int = 0   # fused probe -> partial-agg dispatches
+    fallback_reasons: dict = field(default_factory=dict)
+    # build table (or "?") -> the path its join took: hybrid, pipelined,
+    # fused, per-chunk
+    join_paths: dict = field(default_factory=dict)
+
+    def note_fallback(self, reason: str) -> None:
+        """One batch (or partition) that a device path could not serve
+        and the host aggregated, by reason: capacity, collision,
+        unsupported."""
+        self.fallback_reasons[reason] = \
+            self.fallback_reasons.get(reason, 0) + 1
+
+    @property
+    def fallbacks(self) -> int:
+        return sum(self.fallback_reasons.values())
+
+
+@dataclass
+class ExecContext:
+    """What one run's operators share: the device, the scans' tables
+    (table name -> list of Chunks) and the counters."""
+
+    device: object
+    tables: dict = field(default_factory=dict)
+    stats: ExecStats = field(default_factory=ExecStats)

@@ -1,0 +1,52 @@
+"""Table scans over one table's chunks.
+
+What the JAX package's coprocessor does for a selection-only cop plan
+(store/copr.exec_cop_plan): each chunk of the table is filtered on the
+host, first by the host filter (the string conjuncts), then by the
+pushed filter, with `runtime.eval_filter_host`. The port has no storage
+layer yet, so the chunks come from the run's context (`ctx.tables`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from tidb_tpu_torch.expression import ColumnRef
+from tidb_tpu_torch.ops.runtime import eval_filter_host
+from tidb_tpu_torch.sqltypes import FieldType
+
+__all__ = ["SchemaCol", "TableScan"]
+
+
+@dataclass(frozen=True)
+class SchemaCol:
+    """One output column of an operator."""
+
+    table: str
+    name: str
+    ft: FieldType
+
+
+class TableScan:
+    """Scan of table `table` with the columns `columns` ([(name, ft)], in
+    the table's DDL order): `filter` is the pushed (device-safe)
+    predicate, `host_filter` the string one."""
+
+    def __init__(self, table: str, columns, filter=None, host_filter=None):
+        self.table = table
+        self.schema = [SchemaCol(table, name, ft) for name, ft in columns]
+        self.filter = filter
+        self.host_filter = host_filter
+
+    def col(self, name: str) -> ColumnRef:
+        """A ColumnRef to this scan's column `name`."""
+        j = next(i for i, c in enumerate(self.schema) if c.name == name)
+        return ColumnRef(j, self.schema[j].ft, name)
+
+    def chunks(self, ctx):
+        for chunk in ctx.tables[self.table]:
+            for flt in (self.host_filter, self.filter):
+                if flt is not None and chunk.num_rows:
+                    chunk = chunk.filter(eval_filter_host(flt, chunk))
+            if chunk.num_rows:
+                yield chunk

@@ -41,7 +41,7 @@ from tidb_tpu_torch.sqltypes import EvalType
 __all__ = ["AggSpec", "HashAggKernel", "ScalarAggKernel", "HashAggregator",
            "CapacityError", "CollisionError", "DeviceRejectError",
            "GroupResult", "finalize_group_result", "kernel_for",
-           "group_partial"]
+           "group_partial", "host_hash_keys"]
 
 AggSpec = AggDesc
 
@@ -110,6 +110,36 @@ def _hash_keys(key_cols, n, seed: int, device):
     # reserve the sentinel values for masked/fill
     h = torch.where(h == _SENTINEL_MASKED, -(1 << 63) + 1, h)
     return torch.where(h == _FILL, (1 << 63) - 2, h)
+
+
+_U_GOLD, _U_MIX1, _U_MIX2 = (np.uint64(c % (1 << 64))
+                             for c in (_GOLD, _MIX1, _MIX2))
+
+
+def _host_splitmix(h: np.ndarray) -> np.ndarray:
+    h = h + _U_GOLD
+    h = (h ^ (h >> np.uint64(30))) * _U_MIX1
+    h = (h ^ (h >> np.uint64(27))) * _U_MIX2
+    return h ^ (h >> np.uint64(31))
+
+
+def host_hash_keys(key_cols, n: int, seed: int) -> np.ndarray:
+    """Numpy twin of `_hash_keys` for host-side routing (the hybrid join's
+    partitions, `host_match_pairs`): uint64 arithmetic, bit-identical to
+    the torch version and to the JAX package's `_hash_keys(np, ...)`."""
+    h = np.full(n, np.uint64(seed % (1 << 64)), dtype=np.uint64)
+    for d, v in key_cols:
+        d = np.asarray(d)
+        if d.dtype == np.float64:
+            u = np.where(d == 0.0, 0.0, d).view(np.uint64)
+        else:
+            u = d.astype(np.uint64)
+        v = np.asarray(v, dtype=bool)
+        h = _host_splitmix(h ^ np.where(v, u, np.uint64(0)))
+        h = _host_splitmix(h ^ v.astype(np.uint64))
+    out = h.view(np.int64)
+    out = np.where(out == _SENTINEL_MASKED, np.int64(-(1 << 63) + 1), out)
+    return np.where(out == _FILL, np.int64((1 << 63) - 2), out)
 
 
 def _direct_group_mode(group_exprs) -> bool:
@@ -199,7 +229,10 @@ def _cond_group_table(xp, group_exprs, cols, n, mask, h, C,
     for c, s in zip(codes[1:], spans[1:]):
         combined = combined * s + c
     d_tot = torch.amax(torch.where(mask, combined, -1)) + 2
-    d_inv = torch.where(mask, torch.clamp(combined, max=C - 2), C - 1)
+    # unlike lax.cond, the direct branch runs even when not selected, and
+    # then its int64 code math may have wrapped negative: clamp into the
+    # table so its scatter stays in bounds (a selected branch never wraps)
+    d_inv = torch.where(mask, torch.clamp(combined, 0, C - 2), C - 1)
     # slot identity is the key-tuple hash, not the dense code (the hash
     # mode's merge contract)
     d_uniq = torch.full((C,), _FILL, dtype=torch.int64, device=mask.device)

@@ -21,7 +21,7 @@ import torch
 from tidb_tpu_torch.chunk import Chunk, dict_encode
 from tidb_tpu_torch.expression import Expression
 
-__all__ = ["bucket_size", "pad_column", "device_put_chunk",
+__all__ = ["bucket_size", "pad_column", "put_lanes", "device_put_chunk",
            "resolve_device", "eval_filter_host", "filter_mask_xp",
            "MIN_BUCKET", "superchunk_batches",
            "pipeline_map", "FingerprintCache", "plan_fingerprint"]
@@ -132,17 +132,49 @@ def _host_lanes(chunk: Chunk, used):
     return lanes, dicts
 
 
+def put_lanes(lanes, n: int, size: int, device) -> list:
+    """[(data, valid)] numpy lanes of `n` rows -> the same lanes as tensors
+    on `device`, padded to `size` rows (padding is 0 / invalid). On CUDA
+    the lanes are packed into ONE pinned host buffer (data lanes first,
+    8-byte aligned, then the validity bytes) and copied with one
+    non-blocking copy; the device views slice that one buffer."""
+    device = resolve_device(device)
+    dtypes = [np.asarray(d).dtype for d, _v in lanes]
+    for i, dt in enumerate(dtypes):
+        if dt.itemsize != 8:
+            raise TypeError(f"lane {i}: {dt} is not an 8-byte lane")
+    k = len(lanes)
+    data_bytes = 8 * size * k
+    host = torch.empty(data_bytes + size * k, dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    hb = host.numpy()
+    for i, (d, v) in enumerate(lanes):
+        dv = hb[8 * size * i:8 * size * (i + 1)].view(dtypes[i])
+        dv[:n] = d[:n]
+        dv[n:] = 0
+        vv = hb[data_bytes + size * i:data_bytes + size * (i + 1)].view(bool)
+        vv[:n] = v[:n]
+        vv[n:] = False
+    buf = host.to(device, non_blocking=True) if device.type == "cuda" \
+        else host
+    out = []
+    for i, dt in enumerate(dtypes):
+        tdt = torch.int64 if dt == np.int64 else torch.float64
+        out.append((buf[8 * size * i:8 * size * (i + 1)].view(tdt),
+                    buf[data_bytes + size * i:
+                        data_bytes + size * (i + 1)].view(torch.bool)))
+    return out
+
+
 def device_put_chunk(chunk: Chunk, device=None, size: int | None = None,
                      memo: bool = True, used=None):
     """-> (cols, dicts): cols[j] is (data, valid) tensors on `device`,
     padded to a bucketed size, for every column j in `used` (None for the
     others; used=None ships every column); varlen columns are
-    dict-encoded and their dictionaries returned in `dicts[j]`.
+    dict-encoded and their dictionaries returned in `dicts[j]`. The lanes
+    travel in one pinned buffer and one copy (`put_lanes`).
 
-    On CUDA the lanes are packed into ONE pinned host buffer (data lanes
-    first, 8-byte aligned, then the validity bytes) and copied with one
-    non-blocking copy; the device views slice that one buffer. The
-    transfer is memoized on the chunk (keyed by device, padded size and
+    The transfer is memoized on the chunk (keyed by device, padded size and
     column set): a chunk presented again keeps its columns resident and
     pays zero host->device bytes. Callers must treat chunks as
     immutable. memo=False skips the memo."""
@@ -155,32 +187,11 @@ def device_put_chunk(chunk: Chunk, device=None, size: int | None = None,
         if hit is not None:
             return hit
     lanes, dicts = _host_lanes(chunk, used)
-    n = chunk.num_rows
     order = sorted(lanes)
-    dtypes = {j: lanes[j][0].dtype for j in order}
-    for j in order:
-        if dtypes[j].itemsize != 8:
-            raise TypeError(f"column {j}: {dtypes[j]} is not an 8-byte lane")
-    data_bytes = 8 * size * len(order)
-    host = torch.empty(data_bytes + size * len(order), dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    hb = host.numpy()
-    for i, j in enumerate(order):
-        d, v = lanes[j]
-        dv = hb[8 * size * i:8 * size * (i + 1)].view(dtypes[j])
-        dv[:n] = d
-        dv[n:] = 0
-        vv = hb[data_bytes + size * i:data_bytes + size * (i + 1)].view(bool)
-        vv[:n] = v
-        vv[n:] = False
-    buf = host.to(device, non_blocking=True) if device.type == "cuda" \
-        else host
     cols: list = [None] * len(chunk.columns)
-    for i, j in enumerate(order):
-        tdt = torch.int64 if dtypes[j] == np.int64 else torch.float64
-        cols[j] = (buf[8 * size * i:8 * size * (i + 1)].view(tdt),
-                   buf[data_bytes + size * i:
-                       data_bytes + size * (i + 1)].view(torch.bool))
+    for j, lane in zip(order, put_lanes([lanes[j] for j in order],
+                                        chunk.num_rows, size, device)):
+        cols[j] = lane
     out = (cols, dicts)
     if memo:
         dev_cache_put(chunk, key, out)
