@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py [--sf 10] [--seed 42] [--profile]
+    python3 chip_smoke.py [--sf 10] [--q18-sf SF] [--seed 42] [--profile]
 
 Phases, one JSON line each:
   env     torch and CUDA versions, the card's name and power limit
@@ -15,13 +15,33 @@ Phases, one JSON line each:
           the same generated tables, twice each, held exactly against
           numpy truths (Q3 in every group before its TopN too); the phase
           asserts the segment-sum kernel launched, the lineitem join took
-          the hybrid path, Q5's fused fragment dispatched, no fallback, and
-          no host sync inside the first JoinKernel / ProbeAggKernel /
-          HashAggKernel dispatch of the run
+          the hybrid path, Q5's fused fragment dispatched, no fallback, no
+          host sync inside the first JoinKernel / ProbeAggKernel /
+          HashAggKernel dispatch of the run, and the statement's ledger
+          back at 0 after it; Q3 then runs once more under
+          tidb_tpu_mem_quota_query set from the first run's ledger peak,
+          so the hybrid build's quota spill fires: the rows still equal
+          the truth, partitions spilled, staged probe rows drained, and
+          the ledger reads 0 afterwards
+  analyze ANALYZE of six lineitem columns at --sf (60,012,150 rows each
+          at SF 10): statistics.build_column_stats sorts each on the card
+          (ops/stats.device_sort, one torch.sort) and its ColumnStats
+          (NDV, nulls, every bucket, the CMSketch table) must equal one
+          built from np.sort on the host; the device sort must equal
+          np.sort; per column, the device times of the sort alone and of
+          the sort with its transfers, and the host time of the rest
+  q18     TPC-H Q18's inner block at --q18-sf (default 2, or --sf where
+          that is smaller): ANALYZE of l_orderkey,
+          the NDV rule must pick the stream agg, run_q18_inner's rows and
+          every group before the HAVING must equal numpy truths
+          (np.bincount); the segment-sum kernel launched, the sorter
+          spilled runs to disk, no fallback, no host sync in the first
+          SegmentAggKernel dispatch, and the ledger reads 0 afterwards
   kernel  each kernel against its plain torch version on the card, over
           dtypes, masks and shapes (checked before q1); then, at every
-          shape the cold Q1 run and the first Q3 and Q5 runs gave it (their
-          calls recorded by segsum_bench.record_calls), held again on those
+          shape the cold Q1 run, the first Q3 and Q5 runs and the Q18 run
+          gave it (their calls recorded by segsum_bench.record_calls),
+          held again on those
           very inputs and timed: device time beside its host time per
           call, the plain version, one PyTorch library call and the bound;
           timed after the queries, since launches slow down in a process
@@ -50,6 +70,13 @@ import time
 
 import numpy as np
 import torch
+
+
+# Q18's inner block merges its ~1.5 M groups per scale factor one by one
+# on the host (HashAggregator), as the JAX package does: the q18 phase
+# runs at the largest scale factor that keeps it under about two minutes
+# on the H100's host (SF 1 took 47 s, ANALYZE included; PERF.md)
+Q18_SF = 2.0
 
 
 def emit(obj) -> None:
@@ -385,6 +412,9 @@ def run_query_phase(name, args, dev, d, tables, recorded) -> dict:
             raise AssertionError("q5: the fused fragment never dispatched")
         if st.fallbacks:
             raise AssertionError(f"{name}: fallbacks {st.fallback_reasons}")
+        if st.mem_left:
+            raise AssertionError(f"{name} run {i}: the statement's ledger "
+                                 f"still holds {st.mem_left} bytes")
         need = {"JoinKernel"} | ({"ProbeAggKernel"} if name == "q5"
                                  else {"HashAggKernel"})
         if not need <= set(sync_check.checked):
@@ -399,6 +429,9 @@ def run_query_phase(name, args, dev, d, tables, recorded) -> dict:
             "sync_free_dispatch": sync_check.checked,
             "stats": {k: v for k, v in vars(st).items()}})
     out["rows"] = [[str(x) for x in r] for r in truth]
+    if name == "q3":
+        out["quota_run"] = run_quota(run, dev, qtables, truth,
+                                     out["runs"][0]["stats"])
     # the torch programs of the second run, replayed at its shapes
     out["programs"] = [
         {"program": prog, "shape": list(shape), "calls_per_run": calls,
@@ -410,6 +443,174 @@ def run_query_phase(name, args, dev, d, tables, recorded) -> dict:
     if args.profile:
         out["profile"] = profile_run(lambda: run(device=dev, tables=qtables))
     return out
+
+
+def run_quota(run, dev, qtables, truth, first: dict) -> dict:
+    """One more run under tidb_tpu_mem_quota_query = the first run's
+    ledger peak less a quarter of the device bytes it held at that peak:
+    the statement crosses the quota late in its lineitem probe, when the
+    hybrid build's cold partitions are resident, and their spill brings
+    it back under without a cancel."""
+    from tidb_tpu_torch import config, metrics
+    quota = first["mem_peak"] - first["mem_device_at_peak"] // 4
+    key = metrics.JOIN_SPILL_PARTITIONS
+    before = metrics.snapshot().get(key, 0)
+    with config.session_overlay({"tidb_tpu_mem_quota_query": quota}):
+        res = run(device=dev, tables=qtables)
+    st = res.stats
+    counted = metrics.snapshot().get(key, 0) - before
+    if res.rows != truth:
+        raise AssertionError(f"q3 under quota {quota}: rows differ from "
+                             f"the numpy truth:\n{res.rows}\n{truth}")
+    if st.spilled_partitions <= 0 or counted <= 0:
+        raise AssertionError(f"q3 under quota {quota}: no partition "
+                             f"spilled ({st.spilled_partitions}, counter "
+                             f"{counted})")
+    if st.staged_probe_rows <= 0 or \
+            st.drained_probe_rows != st.staged_probe_rows:
+        raise AssertionError(f"q3 under quota {quota}: staged "
+                             f"{st.staged_probe_rows} probe rows, drained "
+                             f"{st.drained_probe_rows}")
+    if st.mem_left != 0:
+        raise AssertionError(f"q3 under quota {quota}: the ledger still "
+                             f"holds {st.mem_left} bytes")
+    if st.fallbacks:
+        raise AssertionError(f"q3 under quota: fallbacks "
+                             f"{st.fallback_reasons}")
+    return {"quota": quota, "first_peak": first["mem_peak"],
+            "first_device_at_peak": first["mem_device_at_peak"],
+            "seconds": res.seconds, "mem_peak": st.mem_peak,
+            "spilled_partitions": st.spilled_partitions,
+            "join_spill_partitions_counted": counted,
+            "staged_probe_rows": st.staged_probe_rows,
+            "drained_probe_rows": st.drained_probe_rows,
+            "join_paths": st.join_paths, "mem_left": st.mem_left}
+
+
+def analyze_phase(args, dev, tables) -> dict:
+    """ANALYZE of six lineitem columns on the card, each held against the
+    host build from np.sort."""
+    from tidb_tpu_torch import statistics
+    from tidb_tpu_torch.benchmarks import tpch
+    from tidb_tpu_torch.ops import stats
+    out = {"phase": "analyze", "sf": args.sf, "columns": {}}
+    for name in ("l_quantity", "l_discount", "l_tax", "l_shipdate",
+                 "l_commitdate", "l_receiptdate"):
+        col = tpch.table_column(tables["lineitem"], "lineitem", name)
+        data = col.data
+        # the sort alone, on a column already on the card
+        x = torch.from_numpy(stats.pad_for_sort(data)).to(dev)
+        torch.sort(x)
+        t = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t[0].record()
+        torch.sort(x)
+        t[1].record()
+        # device_sort as ANALYZE calls it: transfers in and out included
+        t[2].record()
+        got = stats.device_sort(data, dev)
+        t[3].record()
+        torch.cuda.synchronize()
+        del x
+        t0 = time.perf_counter()
+        want = np.sort(data)
+        host_sort_s = time.perf_counter() - t0
+        if not np.array_equal(got, want):
+            raise AssertionError(f"analyze {name}: device_sort differs "
+                                 "from np.sort")
+        t0 = time.perf_counter()
+        cs = statistics.build_column_stats(col, device=dev)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = statistics.stats_from_sorted(
+            want, int((~col.valid).sum()))
+        rest_s = time.perf_counter() - t0
+        if cs.hist.to_obj() != host.hist.to_obj() or \
+                cs.cms.count != host.cms.count or \
+                not np.array_equal(cs.cms.table, host.cms.table):
+            raise AssertionError(f"analyze {name}: ColumnStats differ from "
+                                 "the host build")
+        out["columns"][name] = {
+            "rows": int(data.size), "ndv": cs.hist.ndv,
+            "buckets": cs.hist.num_buckets,
+            "sort_device_ms": t[0].elapsed_time(t[1]),
+            "device_sort_with_transfers_ms": t[2].elapsed_time(t[3]),
+            "build_column_stats_s": build_s,
+            "host_rest_s": rest_s, "np_sort_s": host_sort_s}
+    return out
+
+
+def q18_phase(args, dev, d, tables, recorded) -> dict:
+    """Q18's inner block at --q18-sf: ANALYZE, the NDV rule, StreamAgg
+    over the spill sorter, the HAVING; its segment_sum calls go to
+    recorded["q18"]."""
+    from tidb_tpu_torch.benchmarks import segsum_bench, tpch
+    from tidb_tpu_torch.executor import agg
+    from tidb_tpu_torch.ops import segsum, streamagg
+    t0 = time.perf_counter()
+    if args.q18_sf != args.sf:
+        d = tpch.ScaledTpch(args.q18_sf, args.seed)
+        tables = tpch.table_chunks(d, ["lineitem"], 1 << 18)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    truth = tpch.q18_inner_truth(d)
+    keys, sums = tpch.q18_groups_truth(d)
+    truth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs = tpch.analyze_columns(None, ["l_orderkey"], dev,
+                              chunks=tables["lineitem"])["l_orderkey"]
+    analyze_s = time.perf_counter() - t0
+    plan, _having = tpch.q18_inner_plan()
+    algo = agg.agg_algorithm([cs], plan.aggs)
+    if algo != "stream":
+        raise AssertionError(f"q18: NDV {cs.hist.ndv} chose {algo}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with SyncFreeFirstDispatch(streamagg.SegmentAggKernel) as sync_check, \
+            segsum_bench.record_calls() as rec:
+        segsum.launches = 0
+        res = agg.run_q18_inner(device=dev, tables=tables, group_stats=[cs])
+        launches = segsum.launches
+    recorded["q18"] = recorded_path("q18", rec, launches)
+    st = res.stats
+    got = np.array([r[0] for r in res.rows], dtype=np.int64)
+    if not np.array_equal(got, truth):
+        raise AssertionError(f"q18: {got.size} rows differ from the numpy "
+                             f"truth's {truth.size}")
+    if not (np.array_equal(res.groups[0], keys) and
+            np.array_equal(res.groups[1], sums)):
+        raise AssertionError(f"q18: the StreamAgg's {res.groups[0].size} "
+                             f"groups differ from the numpy truth's "
+                             f"{keys.size}")
+    if st.agg_algorithm != "stream" or launches <= 0:
+        raise AssertionError(f"q18: {st.agg_algorithm} agg, {launches} "
+                             "segment-sum launches")
+    if st.fallbacks:
+        raise AssertionError(f"q18: fallbacks {st.fallback_reasons}")
+    if "SegmentAggKernel" not in sync_check.checked:
+        raise AssertionError(f"q18: sync-free dispatch checked only "
+                             f"{sync_check.checked}")
+    if st.sort_spilled_runs <= 0:
+        raise AssertionError("q18: the sorter spilled no run")
+    if st.mem_left != 0:
+        raise AssertionError(f"q18: the ledger still holds {st.mem_left} "
+                             "bytes")
+    nrows = d.counts["lineitem"]
+    return {"phase": "q18", "sf": args.q18_sf, "seed": args.seed,
+            "lineitem_rows": nrows, "generate_s": gen_s,
+            "truth_s": truth_s, "analyze_s": analyze_s,
+            "l_orderkey_ndv": cs.hist.ndv, "agg_algorithm": algo,
+            "seconds": res.seconds, "rows_per_s": nrows / res.seconds,
+            "groups": int(keys.size), "rows": int(got.size),
+            "segsum_launches": launches,
+            "sort_spilled_runs": st.sort_spilled_runs,
+            "superchunks": st.superchunks,
+            "device_batches": st.device_batches,
+            "host_batches": st.host_batches, "fallbacks": st.fallbacks,
+            "ledger_peak": st.mem_peak, "ledger_left": st.mem_left,
+            "sync_free_dispatch": sync_check.checked,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "host_max_rss_kb": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss}
 
 
 def profile_run(fn) -> dict:
@@ -462,11 +663,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
                     help="TPC-H scale factor (default 10)")
+    ap.add_argument("--q18-sf", type=float, default=None,
+                    help="scale factor of the q18 phase (default: "
+                         f"{Q18_SF}, or --sf where that is smaller)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", action="store_true",
                     help="add one more run of each query under "
                          "torch.profiler")
     args = ap.parse_args()
+    if args.q18_sf is None:
+        args.q18_sf = min(args.sf, Q18_SF)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -489,6 +695,8 @@ def main() -> int:
     emit(run_q1_phase(args, dev, d, tables["lineitem"], gen_s, recorded))
     for name in ("q3", "q5"):
         emit(run_query_phase(name, args, dev, d, tables, recorded))
+    emit(analyze_phase(args, dev, tables))
+    emit(q18_phase(args, dev, d, tables, recorded))
 
     # the kernel at every shape the three paths gave it, on their own
     # recorded inputs: held against the plain version, then timed

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from test_torch_hashagg import assert_group_results_equal, port_chunk
+from tidb_tpu import memtrack as jmemtrack
 from tidb_tpu import sqltypes as st
 from tidb_tpu.chunk import Chunk, Column
 from tidb_tpu.expression import AggDesc, AggFunc, col
@@ -27,6 +28,7 @@ from tidb_tpu.ops.hashagg import kernel_for as jkernel_for
 from tidb_tpu.statistics import CMSketch as JCMSketch
 from tidb_tpu.statistics import cm_key as jcm_key
 from tidb_tpu_torch import convert
+from tidb_tpu_torch import memtrack as pmemtrack
 from tidb_tpu_torch.ops import hybrid as phy
 from tidb_tpu_torch.ops import join as pj
 from tidb_tpu_torch.ops.hashagg import CapacityError as PCapacityError
@@ -140,7 +142,8 @@ def test_residency_pin_evict():
     assert pb.ensure(1) is dev                # resident: no re-upload
     pb.pin(1)
     pb.evict(1)                               # pinned: parked, still held
-    assert pb._zombies[1] == [dev] and 1 not in pb._resident
+    assert [d for d, _nbytes in pb._zombies[1]] == [dev] and \
+        1 not in pb._resident
     pb.unpin(1)
     assert not pb._zombies                    # unpinned: retired
     assert pb.ensure(1) is not dev            # evicted: uploads again
@@ -212,3 +215,183 @@ def test_agg_retry_from_real_capacity_error():
     assert_group_results_equal(got, want)
     assert phy.escalated_capacity(pe.value.needed) == \
         jhy.escalated_capacity(je.value.needed)
+
+
+# -- under a statement memory quota ----------------------------------------
+
+
+def _resident_build(mod, memtrack, kernel, plan):
+    """A 4-partition HybridJoinBuild over the skewed build, billed to
+    `plan`'s node of the active root, with every partition resident."""
+    bk, _pk, nb, _n = _skewed()
+    h = mod.build_hashes(bk, nb)
+    hot = mod.detect_hot_hashes(h, threshold=1000)
+    kw = {"plan": plan}
+    hyb = mod.HybridJoinBuild(kernel, bk, nb, parts=4, hot_hashes=hot,
+                              threshold=1000, h=h, **kw)
+    for p in range(hyb.parts + 1):
+        if hyb.part_rows(p):
+            hyb.ensure(p)
+    return hyb
+
+
+@pytest.mark.parametrize("pinned", [(), (2,)])
+def test_quota_spill_sheds_the_same_partitions(pinned):
+    """Over the quota, the spill action sheds every resident cold
+    partition but the active one, the pinned ones and the hot lane, in
+    both packages: the same partitions, the same bytes back."""
+    out = {}
+    for name, mod, memtrack, kernel in (
+            ("jax", jhy, jmemtrack, jj.JoinKernel(1)),
+            ("port", phy, pmemtrack, pj.JoinKernel(1, device="cpu"))):
+        plan = object()
+        root = memtrack.statement_root(None, label="q")
+        with memtrack.tracking(root):
+            hyb = _resident_build(mod, memtrack, kernel, plan)
+            for p in pinned:
+                hyb.pin(p)
+            held = root.total()
+            root.quota = held + 10
+            assert hyb.want_immediate(1) and not hyb.under_pressure()
+            root.node(plan).consume(host=100)        # crosses the quota
+            out[name] = (sorted(hyb._resident), hyb.spilled,
+                         hyb.under_pressure(),
+                         [hyb.want_immediate(p) for p in range(5)],
+                         held - root.total())
+            for p in pinned:
+                hyb.unpin(p)
+            hyb.close()
+            root.node(plan).release(host=100)
+        assert root.total() == 0
+    assert out["port"] == out["jax"]
+    resident, spilled, pressure, _want, _freed = out["port"]
+    assert spilled >= 2 and pressure and resident[-1] == 4
+
+
+def test_nothing_sheddable_raises_in_both():
+    for mod, memtrack, kernel in (
+            (jhy, jmemtrack, jj.JoinKernel(1)),
+            (phy, pmemtrack, pj.JoinKernel(1, device="cpu"))):
+        bk, _pk, nb, _n = _skewed()
+        plan = object()
+        root = memtrack.statement_root(None, label="q", quota=1000)
+        with memtrack.tracking(root):
+            # the build's own gathered copy is over the quota: no action
+            # is registered yet, so the statement cancels
+            with pytest.raises(memtrack.QuotaExceededError):
+                mod.HybridJoinBuild(kernel, bk, nb, parts=4, plan=plan)
+        assert root.total() == 0
+
+
+@pytest.fixture(scope="module")
+def join_session():
+    """A JAX-package session with a probe table p (4,000 rows, four
+    superchunks of 1,024) and a build table b (40,000 rows: its resident
+    partitions are most of the device ledger)."""
+    from tidb_tpu.session import Session
+    from tidb_tpu.store.storage import new_mock_storage
+    from tidb_tpu.table import Table, bulkload
+    s = Session(new_mock_storage())
+    s.execute("CREATE DATABASE d")
+    s.execute("USE d")
+    s.execute("CREATE TABLE p (id BIGINT PRIMARY KEY, k BIGINT, y BIGINT)")
+    s.execute("CREATE TABLE b (id BIGINT PRIMARY KEY, k BIGINT, x BIGINT)")
+    rng = np.random.default_rng(13)
+    info = s.domain.info_schema()
+    for name, n, hi in (("p", 4000, 20000), ("b", 40000, 20000)):
+        bulkload.bulk_load(s.storage, Table(info.table("d", name),
+                                            s.storage), {
+            "id": np.arange(n, dtype=np.int64),
+            "k": rng.integers(0, hi, n),
+            "y" if name == "p" else "x": rng.integers(0, 100, n)})
+    yield s
+    s.close()
+
+
+def _join_runs(sess, quota, monkeypatch):
+    """The reference's HashJoinExec and the port's HashJoin over the same
+    chunks under one quota: -> {package: (rows, partitions the spill
+    counter counted, bytes left on the root, the root)}, with the port's
+    run stats. The reference's storage layer (its readers' decode
+    buffers) bills nodes of its own, off the statement: the port has no
+    storage layer, and with it off the two ledgers move in step."""
+    from tidb_tpu import config as jconfig
+    from tidb_tpu import metrics as jmetrics
+    from tidb_tpu.executor import ExecContext as JExecContext
+    from tidb_tpu.executor import build_executor
+    from tidb_tpu.plan import physical as jph
+    from tidb_tpu_torch import config as pconfig
+    from tidb_tpu_torch import metrics as pmetrics
+    from tidb_tpu_torch.executor import ExecContext, ExecStats
+    from tidb_tpu_torch.executor.join import HashJoin
+    from tidb_tpu_torch.executor.scan import TableScan
+    node = jmemtrack.MemTracker.node
+
+    def off_statement(self, plan, name=None):
+        if isinstance(plan, jph.PhysTableReader) or \
+                type(plan).__name__ == "CopPlan":
+            return jmemtrack.MemTracker("storage")
+        return node(self, plan, name)
+    monkeypatch.setattr(jmemtrack.MemTracker, "node", off_statement)
+    overlay = {"tidb_tpu_superchunk_rows": 1024,
+               "tidb_tpu_join_partitions": 4}
+    plan = sess.plan("SELECT * FROM p JOIN b ON p.k = b.k")
+    while not isinstance(plan, jph.PhysHashJoin):
+        plan = plan.children[0]
+    key = "tidb_tpu_join_spill_partitions_total"
+
+    def ctx():
+        return JExecContext(sess.storage, sess._read_ts(), None)
+    out = {}
+    root = jmemtrack.statement_root(None, quota=quota)
+    before = jmetrics.snapshot().get(key, 0)
+    with jconfig.session_overlay(overlay), jmemtrack.tracking(root):
+        rows = []
+        for ch in build_executor(plan).chunks(ctx()):
+            rows.extend(ch.to_pylist())
+        sides = [list(build_executor(c).chunks(ctx()))
+                 for c in plan.children]
+    out["jax"] = (rows, jmetrics.snapshot().get(key, 0) - before,
+                  root.total(), root)
+
+    def scan(name, child):
+        return TableScan(name, [(c.name, convert.field_type(
+            c.ft.tp, c.ft.flen, c.ft.frac, c.ft.collation))
+            for c in child.schema.cols])
+    left, right = (scan(t, c) for t, c in zip("pb", plan.children))
+    join = HashJoin(left, right,
+                    [convert.expr_from(k) for k in plan.left_keys],
+                    [convert.expr_from(k) for k in plan.right_keys])
+    tables = {t: [port_chunk(c) for c in chs] for t, chs in zip("pb", sides)}
+    pctx = ExecContext(torch.device("cpu"), tables, ExecStats())
+    root = pmemtrack.statement_root(None, quota=quota)
+    before = pmetrics.snapshot().get(key, 0)
+    with pconfig.session_overlay(overlay), pmemtrack.tracking(root):
+        rows = []
+        for ch in join.chunks(pctx):
+            rows.extend(ch.to_pylist())
+    out["port"] = (rows, pmetrics.snapshot().get(key, 0) - before,
+                   root.total(), root)
+    return out, pctx.stats
+
+
+def test_quota_stages_and_drains_the_reference_pairs(join_session,
+                                                     monkeypatch):
+    """Under a quota the hybrid probe of both packages spills build
+    partitions, stages the later probe rows bound for them and drains
+    them partition by partition: the joined rows come out in the same
+    sequence, the spill counters agree, and the ledgers end at 0. The
+    quota sits a quarter of the device bytes below the peak an
+    unreachable quota's run reached, as chip_smoke.py sets it for Q3."""
+    free, _stats = _join_runs(join_session, 1 << 40, monkeypatch)
+    assert free["port"][0] == free["jax"][0]
+    proot = free["port"][3]
+    quota = proot.total_peak - proot.device_at_peak // 4
+    got, stats = _join_runs(join_session, quota, monkeypatch)
+    prows, pspill, pleft, _r = got["port"]
+    jrows, jspill, jleft, _r = got["jax"]
+    assert prows == jrows
+    assert sorted(prows) == sorted(free["jax"][0])
+    assert pspill == jspill == stats.spilled_partitions > 0
+    assert stats.staged_probe_rows == stats.drained_probe_rows > 0
+    assert pleft == jleft == 0

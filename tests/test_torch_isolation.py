@@ -1,7 +1,8 @@
 """The port stands alone: tidb_tpu_torch imports neither jax nor
-tidb_tpu (by AST scan and by sys.modules after a CPU Q1 run in a fresh
-process), and its entry points run on CUDA unless told otherwise, raising
-where there is none instead of quietly running on the CPU."""
+tidb_tpu (by AST scan and by sys.modules after CPU runs of Q1 and Q18's
+inner block in a fresh process), and its entry points run on CUDA unless
+told otherwise, raising where there is none instead of quietly running
+on the CPU."""
 
 import ast
 import json
@@ -56,6 +57,9 @@ d = tpch.ScaledTpch(0.002, 7)
 res = run_q1(device="cpu", chunks=tpch.lineitem_chunks(d, 4096),
              superchunk_rows=4096)
 assert res.rows == tpch.q1_truth(d), res.rows
+from tidb_tpu_torch.executor.agg import run_q18_inner
+q18 = run_q18_inner(device="cpu", sf=0.002, seed=7, superchunk_rows=4096)
+assert [r[0] for r in q18.rows] == tpch.q18_inner_truth(d).tolist()
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))))
 """
@@ -77,16 +81,30 @@ def _no_cuda():
 
 def test_entry_points_default_to_cuda():
     _no_cuda()
+    import numpy as np
+    from tidb_tpu_torch import statistics
     from tidb_tpu_torch.benchmarks import tpch
     from tidb_tpu_torch.chunk import Chunk
-    from tidb_tpu_torch.executor.agg import run_agg, run_q1, run_q3, run_q5
-    from tidb_tpu_torch.ops import fragment, hashagg, hybrid, join, runtime
+    from tidb_tpu_torch.executor import ExecContext
+    from tidb_tpu_torch.executor.agg import (run_agg, run_q1, run_q3,
+                                             run_q5, run_q18_inner)
+    from tidb_tpu_torch.ops import (fragment, hashagg, hybrid, join, runtime,
+                                    stats, streamagg)
     flt, group_exprs, aggs = tpch.q1_plan()
     ch = tpch.lineitem_chunks(tpch.ScaledTpch(0.002, 1), 4096)[0]
+    q18, _having = tpch.q18_inner_plan()
+    big = tpch.table_column([ch] * 40, "lineitem", "l_orderkey")
     calls = [
         lambda: run_q1(sf=0.002),
         lambda: run_q3(sf=0.002),
         lambda: run_q5(sf=0.002),
+        lambda: run_q18_inner(sf=0.002),
+        lambda: stats.device_sort(np.arange(10)),
+        lambda: statistics.build_column_stats(big),
+        lambda: tpch.analyze_columns(None, ["l_orderkey"], chunks=[ch]),
+        lambda: list(q18.chunks(ExecContext(None, {"lineitem": [ch]}))),
+        lambda: streamagg.segment_kernel_for(q18.group_exprs, q18.aggs),
+        lambda: streamagg.SegmentAggKernel(q18.group_exprs, q18.aggs),
         lambda: join.JoinKernel(1),
         lambda: fragment.fragment_kernel_for(1, 5, 10, group_exprs, aggs),
         lambda: hybrid.partitioned_agg(ch, flt, group_exprs, aggs),

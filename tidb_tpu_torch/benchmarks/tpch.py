@@ -1,4 +1,4 @@
-"""Scaled TPC-H for the port's Q1, Q3 and Q5 paths.
+"""Scaled TPC-H for the port's Q1, Q3, Q5 and Q18-inner paths.
 
 The numpy generator is a copy of the JAX package's
 benchmarks/tpch.ScaledTpch with the same draw order, so one `seed` gives
@@ -9,7 +9,8 @@ has neither yet) builds each table's scan chunks directly, in the JAX
 package's DDL column order, and carries the plans that the JAX planner
 builds: for Q1 the partial aggregation it pushes to the coprocessor, for
 Q3 and Q5 the left-deep join trees (build side = right child) under one
-HashAgg, with their host tails (TopN, Sort) as plain functions.
+HashAgg, with their host tails (TopN, Sort) as plain functions, and for
+Q18's inner block the StreamAgg the planner picks after ANALYZE.
 
 Overflow: Q1's sum_charge lane is scaled by 10^6; at sf 10 one group's
 sum comes to about 1.5e18, under int64's 9.2e18. At sf 100 it would
@@ -31,7 +32,8 @@ __all__ = ["ScaledTpch", "Q1", "Q3", "Q5", "TABLE_COLUMNS",
            "LINEITEM_COLUMNS", "QUERY_TABLES", "PLANS", "table_chunks",
            "lineitem_chunks", "q1_plan", "q1_truth", "q3_plan", "q3_finish",
            "q3_truth", "q3_groups_truth", "q5_plan", "q5_finish",
-           "q5_truth"]
+           "q5_truth", "Q18_INNER", "q18_inner_plan", "q18_inner_truth",
+           "q18_groups_truth", "table_column", "analyze_columns"]
 
 REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 NATIONS = [  # (name, region_idx) — the 25 spec nations
@@ -497,3 +499,72 @@ def q5_truth(d: ScaledTpch) -> list[tuple]:
 
 # query -> (plan builder, host tail) for executor/agg.run_q3 / run_q5
 PLANS = {"q3": (q3_plan, q3_finish), "q5": (q5_plan, q5_finish)}
+
+
+Q18_INNER = """
+SELECT l_orderkey
+FROM lineitem
+GROUP BY l_orderkey
+HAVING SUM(l_quantity) > 300
+"""
+
+
+def q18_inner_plan():
+    """Q18's inner block as the JAX planner builds it after ANALYZE
+    (l_orderkey's NDV over the stream-agg threshold): StreamAgg
+    (sorted_input=False) grouped by l_orderkey computing SUM(l_quantity)
+    over TableScan(lineitem), whose reader keeps every column, with the
+    HAVING as a host selection above it. -> (StreamAgg, HAVING predicate
+    over the StreamAgg's output (l_orderkey, SUM))."""
+    from tidb_tpu_torch.executor.agg import StreamAgg
+    from tidb_tpu_torch.executor.scan import TableScan
+    from tidb_tpu_torch.expression import (AggDesc, AggFunc, ColumnRef,
+                                           Constant, Op, func)
+    scan = TableScan("lineitem", LINEITEM_COLUMNS)
+    agg = StreamAgg(scan, [scan.col("l_orderkey")],
+                    [AggDesc(AggFunc.SUM, scan.col("l_quantity"))],
+                    sorted_input=False)
+    having = func(Op.GT, ColumnRef(1, agg.aggs[0].result_ft),
+                  Constant(300, new_int_field()))
+    return agg, having
+
+
+def q18_groups_truth(d: ScaledTpch) -> tuple[np.ndarray, np.ndarray]:
+    """Every group of Q18's inner aggregation from the generator's arrays
+    (np.bincount): -> (l_orderkey ascending, SUM(l_quantity) as a scaled
+    int at frac 2), both int64."""
+    orders = d.counts["orders"]
+    cnt = np.bincount(d.l_orderkey, minlength=orders)
+    # float64 weights sum small whole quantities exactly
+    qty = np.bincount(d.l_orderkey, weights=d.l_quantity, minlength=orders)
+    keys = np.flatnonzero(cnt).astype(np.int64)
+    return keys, np.rint(qty[keys]).astype(np.int64) * 100
+
+
+def q18_inner_truth(d: ScaledTpch) -> np.ndarray:
+    """Q18's inner block's rows: the l_orderkeys (ascending, int64) whose
+    SUM(l_quantity) exceeds 300."""
+    keys, sums = q18_groups_truth(d)
+    return keys[sums > 300 * 100]
+
+
+def table_column(chunks, table: str, name: str) -> Column:
+    """Column `name` of `table` over all of its chunks, as one Column."""
+    j = [n for n, _ft in TABLE_COLUMNS[table]].index(name)
+    cols = [c.columns[j] for c in chunks]
+    return Column(cols[0].ft, np.concatenate([c.data for c in cols]),
+                  np.concatenate([c.valid for c in cols]))
+
+
+def analyze_columns(d: ScaledTpch | None, names, device=None,
+                    chunks=None, table: str = "lineitem") -> dict:
+    """ANALYZE of the columns `names` of `table`: {name: ColumnStats}
+    built by statistics.build_column_stats on `device` (a column of 2^17
+    rows or more sorts there). The table's `chunks` are built from `d`
+    unless given."""
+    from tidb_tpu_torch.statistics import build_column_stats
+    if chunks is None:
+        chunks = table_chunks(d, [table])[table]
+    return {name: build_column_stats(table_column(chunks, table, name),
+                                     device=device)
+            for name in names}

@@ -16,7 +16,7 @@ __all__ = ["get_var", "set_var", "session_overlay", "device_min_rows",
            "superchunk_rows", "pipeline_depth", "fused_scan_enabled",
            "encoded_exec_enabled", "fuse_fragments_enabled",
            "direct_agg_slots", "join_partitions", "skew_threshold",
-           "UnknownVariableError"]
+           "sort_spill_rows", "mem_quota_query", "UnknownVariableError"]
 
 
 class UnknownVariableError(Exception):
@@ -48,6 +48,13 @@ _DEFS: dict[str, tuple[str, int]] = {
     # heavy-hitter threshold in rows: a join key this frequent on either
     # side routes to the hybrid join's broadcast lane; 0 disables it
     "tidb_tpu_skew_threshold": (_INT, 1 << 15),
+    # external sort's run size in rows (executor/extsort.SpillSorter):
+    # buffered rows past it spill to disk as one sorted run
+    "tidb_tpu_sort_spill_rows": (_INT, 1 << 20),
+    # per-statement memory quota in bytes over the memtrack ledgers
+    # (host + device); 0 = unlimited. Crossing it fires the registered
+    # spill actions first, then cancels with QuotaExceededError
+    "tidb_tpu_mem_quota_query": (_INT, 0),
 }
 
 _vals: dict[str, int] = {}
@@ -153,3 +160,11 @@ def join_partitions() -> int:
 
 def skew_threshold() -> int:
     return max(0, _read("tidb_tpu_skew_threshold"))
+
+
+def sort_spill_rows() -> int:
+    return _read("tidb_tpu_sort_spill_rows")
+
+
+def mem_quota_query() -> int:
+    return max(0, _read("tidb_tpu_mem_quota_query"))

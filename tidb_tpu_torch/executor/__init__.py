@@ -26,6 +26,15 @@ class ExecStats:
     partition_uploads: int = 0  # hybrid build partitions uploaded
     hybrid_tasks: int = 0       # hybrid (probe batch x partition) dispatches
     fused_dispatches: int = 0   # fused probe -> partial-agg dispatches
+    spilled_partitions: int = 0  # hybrid build partitions the quota shed
+    staged_probe_rows: int = 0  # probe rows staged for spilled partitions
+    drained_probe_rows: int = 0  # staged probe rows matched in the drain
+    sort_spilled_runs: int = 0  # runs the stream agg's sorter wrote
+    agg_algorithm: str = ""     # "stream" or "hash", where a run chose
+    segsum_launches: int = 0    # segment-sum kernel launches of the run
+    mem_peak: int = 0           # the statement ledger's host+device peak
+    mem_device_at_peak: int = 0  # ... and its device bytes at that moment
+    mem_left: int = 0           # bytes the ledger still held at the end
     fallback_reasons: dict = field(default_factory=dict)
     # build table (or "?") -> the path its join took: hybrid, pipelined,
     # fused, per-chunk

@@ -18,24 +18,34 @@ to the caller's miss handler. Two drivers share it:
     probe and partial agg into one dispatch per probe superchunk
     (ops/fragment.py) unless the join's build takes the hybrid path.
 
+`StreamAgg` is the port of StreamAggExec: rows ordered by the group keys
+(a sorted child, or the spill sorter of executor/extsort.py) are
+segment-reduced on the device by ops/streamagg.SegmentAggKernel, with no
+capacity limit. `agg_algorithm` is the JAX planner's NDV rule between the
+two, over a column's ANALYZE statistics.
+
 `run_q3` / `run_q5` run TPC-H Q3 and Q5 through HashAgg, with their host
-tails (TopN, Sort) as plain host code.
+tails (TopN, Sort) as plain host code; `run_q18_inner` runs Q18's inner
+block (ANALYZE, the NDV rule, StreamAgg, the HAVING). Each opens a
+memtrack statement root carrying tidb_tpu_mem_quota_query, as a
+session does for a statement.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from tidb_tpu_torch import config
+from tidb_tpu_torch import config, memtrack
 from tidb_tpu_torch.chunk import Chunk, Column
 from tidb_tpu_torch.executor import ExecContext, ExecStats
 from tidb_tpu_torch.executor.join import HashJoin
 from tidb_tpu_torch.executor.scan import SchemaCol
 from tidb_tpu_torch.expression import AggFunc
-from tidb_tpu_torch.ops import runtime
+from tidb_tpu_torch.ops import runtime, segsum
 from tidb_tpu_torch.ops.fragment import fragment_kernel_for
 from tidb_tpu_torch.ops.hashagg import (CapacityError, CollisionError,
                                         DeviceRejectError, HashAggregator,
@@ -43,10 +53,12 @@ from tidb_tpu_torch.ops.hashagg import (CapacityError, CollisionError,
 from tidb_tpu_torch.ops.hostagg import host_hash_agg, host_scalar_agg
 from tidb_tpu_torch.ops.hybrid import escalated_capacity, partitioned_agg
 from tidb_tpu_torch.ops.join import host_match_pairs
+from tidb_tpu_torch.ops.streamagg import segment_kernel_for
 from tidb_tpu_torch.sqltypes import np_dtype_for, object_fill
 
-__all__ = ["Q1Result", "QueryResult", "HashAgg", "superchunk_partials",
-           "run_agg", "run_q1", "run_q3", "run_q5"]
+__all__ = ["Q1Result", "QueryResult", "HashAgg", "StreamAgg",
+           "STREAM_AGG_NDV", "agg_algorithm", "superchunk_partials",
+           "run_agg", "run_q1", "run_q3", "run_q5", "run_q18_inner"]
 
 
 def _host_agg(chunk, filter_expr, group_exprs, aggs):
@@ -108,12 +120,13 @@ def escalating_pipeline(batches, kernel, dispatch, finalize, escalate,
 
 
 def superchunk_partials(chunks, filter_expr, group_exprs, aggs,
-                        ctx: ExecContext, on_miss):
+                        ctx: ExecContext, on_miss, tracker=None):
     """Coalesced device partial aggregation of `chunks` -> GroupResults in
     order. A batch below tidb_tpu_device_min_rows aggregates on the host
     (designed, counted in host_batches); a capacity miss re-plans once
     and later batches dispatch with the larger kernel; a miss that
-    survives, or a collision, goes to on_miss(chunk, reason)."""
+    survives, or a collision, goes to on_miss(chunk, reason). `tracker`
+    (a memtrack node) bills the superchunk staging."""
     stats = ctx.stats
     group_exprs = list(group_exprs)
     kernel = None
@@ -144,7 +157,8 @@ def superchunk_partials(chunks, filter_expr, group_exprs, aggs,
             yield chunk
 
     return escalating_pipeline(
-        counted(runtime.superchunk_batches(chunks, config.superchunk_rows())),
+        counted(runtime.superchunk_batches(chunks, config.superchunk_rows(),
+                                           tracker=tracker)),
         kernel, dispatch, finalize,
         lambda e: _escalated_kernel(e, filter_expr, group_exprs, aggs,
                                     ctx.device),
@@ -209,34 +223,38 @@ class HashAgg:
         self.child = child
         self.group_exprs = list(group_exprs)
         self.aggs = list(aggs)
-        self.schema = [SchemaCol("", getattr(g, "name", "") or f"_g{i}",
-                                 g.ft)
-                       for i, g in enumerate(self.group_exprs)] + \
-            [SchemaCol("", a.name or f"_a{i}", a.result_ft)
-             for i, a in enumerate(self.aggs)]
+        self.schema = _agg_schema(self.group_exprs, self.aggs)
 
     def chunks(self, ctx):
         agg = HashAggregator(self.aggs, self.group_exprs)
-        if not all(not a.distinct for a in self.aggs):
-            # DISTINCT aggregates run on the host by design
-            for chunk in self.child.chunks(ctx):
-                if chunk.num_rows:
-                    agg.update(host_hash_agg(chunk, None, self.group_exprs,
-                                             self.aggs))
-        elif not config.superchunk_rows():
-            raise NotImplementedError(
-                "per-chunk device aggregation (tidb_tpu_superchunk_rows "
-                "= 0) is not ported yet")
-        else:
-            frag = self._fragment_kernel(ctx)
-            source = self._fused_partials(ctx, frag) if frag is not None \
-                else self._superchunk_partials(ctx, self.child.chunks(ctx))
+        tracked = 0
+        try:
+            if not all(not a.distinct for a in self.aggs):
+                # DISTINCT aggregates run on the host by design
+                source = (host_hash_agg(chunk, None, self.group_exprs,
+                                        self.aggs)
+                          for chunk in self.child.chunks(ctx)
+                          if chunk.num_rows)
+            elif not config.superchunk_rows():
+                raise NotImplementedError(
+                    "per-chunk device aggregation (tidb_tpu_superchunk_rows"
+                    " = 0) is not ported yet")
+            else:
+                frag = self._fragment_kernel(ctx)
+                source = self._fused_partials(ctx, frag) \
+                    if frag is not None else \
+                    self._superchunk_partials(ctx, self.child.chunks(ctx))
             for gr in source:
                 agg.update(gr)
-        results = agg.results()
-        if not self.group_exprs and not results:
-            results = [((), [_empty_agg_value(a) for a in self.aggs])]
-        yield _results_chunk(self.schema, results)
+                # the merged state grows with the group count: billed
+                tracked = memtrack.track_to(self, agg.approx_bytes(),
+                                            tracked)
+            results = agg.results()
+            if not self.group_exprs and not results:
+                results = [((), [_empty_agg_value(a) for a in self.aggs])]
+            yield _results_chunk(self.schema, results)
+        finally:
+            memtrack.release(self, host=tracked)
 
     def _fragment_kernel(self, ctx):
         """A ProbeAggKernel when this agg can fuse with its child join
@@ -278,12 +296,16 @@ class HashAgg:
         nb = build.num_rows if build is not None else 0
         if nb == 0:
             return      # inner join over an empty build: no input rows
+        tracked = memtrack.track_to(self, memtrack.chunk_bytes(build))
         enc, bk = join._fit_build(build)
         engage, hot, h = join._hybrid_engage(bk, nb)
         if engage:
             # the keys, hashes and hot set just computed ride along
-            yield from self._superchunk_partials(ctx, join._probe_join(
-                ctx, build, nb, prepared=(enc, bk, hot, h)))
+            try:
+                yield from self._superchunk_partials(ctx, join._probe_join(
+                    ctx, build, nb, prepared=(enc, bk, hot, h)))
+            finally:
+                memtrack.release(self, host=tracked)
             return
         stats.join_paths[join.build_label()] = "fused"
         build_dev = None
@@ -317,12 +339,16 @@ class HashAgg:
             stats.note_fallback(reason)
             return decoded_batch(tok[0], sc)
 
-        yield from escalating_pipeline(
-            runtime.superchunk_batches(join.left.chunks(ctx),
-                                       config.superchunk_rows()),
-            fk, dispatch, finalize,
-            lambda e: self._escalated_fragment(ctx, e, nl, width), on_miss,
-            stats)
+        try:
+            yield from escalating_pipeline(
+                runtime.superchunk_batches(join.left.chunks(ctx),
+                                           config.superchunk_rows(),
+                                           tracker=memtrack.op_node(self)),
+                fk, dispatch, finalize,
+                lambda e: self._escalated_fragment(ctx, e, nl, width),
+                on_miss, stats)
+        finally:
+            memtrack.release(self, host=tracked)
 
     def _escalated_fragment(self, ctx, e: CapacityError, nl: int,
                             width: int):
@@ -348,7 +374,176 @@ class HashAgg:
                                    ctx.stats, reason=reason,
                                    device=ctx.device)
         return superchunk_partials(chunks, None, self.group_exprs,
-                                   self.aggs, ctx, on_miss)
+                                   self.aggs, ctx, on_miss,
+                                   tracker=memtrack.op_node(self))
+
+
+def _agg_schema(group_exprs, aggs):
+    return [SchemaCol("", getattr(g, "name", "") or f"_g{i}", g.ft)
+            for i, g in enumerate(group_exprs)] + \
+        [SchemaCol("", a.name or f"_a{i}", a.result_ft)
+         for i, a in enumerate(aggs)]
+
+
+class StreamAgg:
+    """Sort-based aggregation: the port of StreamAggExec. Rows are
+    ordered by the group keys, then segment-reduced on the device
+    (ops/streamagg.py) with no capacity limit (num_segments = the padded
+    rows of a superchunk), so arbitrarily many groups never overflow a
+    device table. `chunks(ctx)` yields one Chunk: the group columns,
+    then one column per aggregate.
+
+    `sorted_input` streams the child's chunks as they come (they must
+    hold equal keys adjacent); otherwise the input goes through the
+    spill sorter, whose run size is tidb_tpu_sort_spill_rows, and which
+    sheds its buffer to disk under the statement's quota instead of
+    cancelling it. A group that spans two superchunks merges itself in
+    the HashAggregator."""
+
+    _SLICE = 1 << 17     # rows per device dispatch without superchunks
+
+    def __init__(self, child, group_exprs, aggs, sorted_input: bool = False):
+        self.child = child
+        self.group_exprs = list(group_exprs)
+        self.aggs = list(aggs)
+        self.sorted_input = sorted_input
+        self.schema = _agg_schema(self.group_exprs, self.aggs)
+        self._kernel = None
+
+    def _parts(self, ctx, slice_rows: int):
+        """Key-ordered ~slice_rows superchunks: key adjacency survives
+        coalescing because both sources yield key-ordered chunks."""
+        mt_node = memtrack.op_node(self)
+        if self.sorted_input:
+            yield from runtime.superchunk_batches(self.child.chunks(ctx),
+                                                  slice_rows,
+                                                  tracker=mt_node)
+            return
+        from tidb_tpu_torch.executor.extsort import SpillSorter
+        by = [(g, False) for g in self.group_exprs]
+        sorter = SpillSorter(by, run_rows=config.sort_spill_rows(),
+                             block_rows=slice_rows, tracker=mt_node)
+        try:
+            for chunk in self.child.chunks(ctx):
+                sorter.add(chunk)
+            yield from runtime.superchunk_batches(sorter.sorted_chunks(),
+                                                  slice_rows,
+                                                  tracker=mt_node)
+        finally:
+            ctx.stats.sort_spilled_runs += sorter.spilled_runs
+            sorter.close()
+
+    def chunks(self, ctx):
+        device = runtime.resolve_device(ctx.device)
+        stats = ctx.stats
+        agg = HashAggregator(self.aggs, self.group_exprs)
+        use_device = all(not a.distinct for a in self.aggs)
+        slice_rows = config.superchunk_rows() or self._SLICE
+        parts = self._parts(ctx, slice_rows)
+        tracked = 0
+        try:
+            if use_device and config.superchunk_rows():
+                source = self._pipelined_segments(ctx, device, parts)
+            else:
+                source = (self._feed(ctx, device, part, use_device)
+                          for part in parts)
+            for gr in source:
+                agg.update(gr)
+                tracked = memtrack.track_to(self, agg.approx_bytes(),
+                                            tracked)
+            results = agg.results()
+            if not self.group_exprs and not results:
+                results = [((), [_empty_agg_value(a) for a in self.aggs])]
+            yield _results_chunk(self.schema, results)
+        finally:
+            memtrack.release(self, host=tracked)
+
+    def _kernel_for(self, ctx, device):
+        """The segment kernel, made on first use; None (counted as an
+        "unsupported" fallback) when the plan is not device-safe."""
+        if self._kernel is None:
+            try:
+                self._kernel = segment_kernel_for(self.group_exprs,
+                                                  self.aggs, device=device)
+            except (DeviceRejectError, NotImplementedError):
+                ctx.stats.note_fallback("unsupported")
+        return self._kernel
+
+    def _host_part(self, ctx, part):
+        ctx.stats.host_batches += 1
+        return host_hash_agg(part, None, self.group_exprs, self.aggs)
+
+    def _feed(self, ctx, device, part, use_device: bool):
+        """One part, synchronously (tidb_tpu_superchunk_rows = 0)."""
+        ctx.stats.superchunks += 1
+        k = self._kernel_for(ctx, device) if use_device else None
+        if k is None or part.num_rows < config.device_min_rows():
+            return self._host_part(ctx, part)
+        with memtrack.device_scope(self, k.dispatch_nbytes(part)):
+            gr = k(part)
+        ctx.stats.device_batches += 1
+        return gr
+
+    def _pipelined_segments(self, ctx, device, parts):
+        """Segment-reduce each superchunk through the dispatch-ahead
+        pipeline: one whole-superchunk segment reduction per batch, the
+        next batch padded and transferred while this one runs. A batch
+        below tidb_tpu_device_min_rows aggregates on the host."""
+        stats = ctx.stats
+        min_rows = config.device_min_rows()
+        self._kernel_for(ctx, device)
+
+        def dispatch(part):
+            stats.superchunks += 1
+            k = self._kernel
+            if k is None or part.num_rows < min_rows:
+                return None
+            db = k.dispatch_nbytes(part)
+            memtrack.consume(self, device=db)
+            try:
+                return k, k.dispatch(part), db
+            except BaseException:
+                memtrack.release(self, device=db)
+                raise
+
+        def finalize(part, tok):
+            if tok is None:
+                return self._host_part(ctx, part)
+            k, pending, db = tok
+            try:
+                gr = k.finalize(part, pending)
+            finally:
+                memtrack.release(self, device=db)
+            stats.device_batches += 1
+            return gr
+
+        return runtime.pipeline_map(parts, dispatch, finalize,
+                                    config.pipeline_depth(),
+                                    tracker=memtrack.op_node(self),
+                                    cost=memtrack.chunk_bytes)
+
+
+# beyond this many estimated groups the sort-based StreamAgg beats the
+# hash kernel's capacity-escalation and collision-fallback protocol (the
+# JAX planner's _STREAM_AGG_NDV)
+STREAM_AGG_NDV = 1 << 16
+
+
+def agg_algorithm(group_stats, aggs=()) -> str:
+    """The JAX planner's choice for a grouped aggregation
+    (plan/planner._choose_agg_algorithm), the port's stand-in until the
+    planner is ported: "stream" when the largest NDV among the bare
+    group columns' ANALYZE statistics exceeds STREAM_AGG_NDV, else
+    "hash". `group_stats` holds one ColumnStats per group expression
+    (None where the column cannot be traced to statistics); no group
+    columns, a DISTINCT aggregate or no statistics at all keep the hash
+    agg."""
+    if not group_stats or any(a.distinct for a in aggs):
+        return "hash"
+    ndvs = [cs.hist.ndv for cs in group_stats if cs is not None]
+    if ndvs and max(ndvs) > STREAM_AGG_NDV:
+        return "stream"
+    return "hash"
 
 
 @dataclass
@@ -398,6 +593,27 @@ def _chunk_rows(chunk: Chunk) -> list[tuple]:
     return list(zip(*cols))
 
 
+@contextlib.contextmanager
+def _statement(stats: ExecStats):
+    """A run as one statement: a memtrack statement root carrying
+    tidb_tpu_mem_quota_query, installed on this thread as a session does,
+    with the segment-sum kernel's launches read around it. On exit the
+    launches, the ledger's peak and what it still holds (0 after a clean
+    run) go to `stats`, and the root detaches."""
+    root = memtrack.statement_root(None, quota=config.mem_quota_query())
+    launches = segsum.launches
+    try:
+        with memtrack.tracking(root):
+            yield root
+    finally:
+        stats.segsum_launches += segsum.launches - launches
+        if root.total_peak > stats.mem_peak:
+            stats.mem_peak = root.total_peak
+            stats.mem_device_at_peak = root.device_at_peak
+        stats.mem_left = root.total()
+        root.detach()
+
+
 def _run_query(name: str, sf: float, seed: int, device, tables,
                superchunk_rows) -> QueryResult:
     from tidb_tpu_torch.benchmarks import tpch
@@ -411,7 +627,8 @@ def _run_query(name: str, sf: float, seed: int, device, tables,
     ctx = ExecContext(device, tables)
     with config.session_overlay(overlay):
         t0 = time.perf_counter()
-        (chunk,) = plan().chunks(ctx)
+        with _statement(ctx.stats):
+            (chunk,) = plan().chunks(ctx)
         groups = _chunk_rows(chunk)
         rows = finish(groups)
         seconds = time.perf_counter() - t0
@@ -433,3 +650,47 @@ def run_q5(sf: float = 10.0, seed: int = 42, device=None, tables=None,
     """TPC-H Q5 at scale factor `sf` on `device`: rows (n_name, revenue
     as a scaled int at frac 4), by revenue descending."""
     return _run_query("q5", sf, seed, device, tables, superchunk_rows)
+
+
+def run_q18_inner(sf: float = 10.0, seed: int = 42, device=None,
+                  tables=None, superchunk_rows: int | None = None,
+                  group_stats=None) -> QueryResult:
+    """TPC-H Q18's inner block, `SELECT l_orderkey FROM lineitem GROUP BY
+    l_orderkey HAVING SUM(l_quantity) > 300`, at scale factor `sf` on
+    `device`, as the JAX package runs it after ANALYZE: l_orderkey's
+    statistics (built on `device`, or `group_stats` = [ColumnStats] from
+    an earlier ANALYZE), the planner's NDV rule (`agg_algorithm`), then
+    StreamAgg over the lineitem scan (or the hash agg below the rule's
+    threshold), then the HAVING on the host.
+
+    -> QueryResult: rows (l_orderkey,) in key order; `groups` the
+    aggregation's every group before the HAVING as two numpy arrays
+    (l_orderkey, SUM(l_quantity) as a scaled int at frac 2); `stats`
+    with the algorithm chosen, the sorter's spilled runs, the
+    segment-sum launches, fallbacks and the ledger's peak. `seconds`
+    covers the query, not the ANALYZE."""
+    from tidb_tpu_torch.benchmarks import tpch
+    device = runtime.resolve_device(device)
+    if tables is None:
+        tables = tpch.table_chunks(tpch.ScaledTpch(sf, seed), ["lineitem"])
+    if group_stats is None:
+        group_stats = [tpch.analyze_columns(
+            None, ["l_orderkey"], device,
+            chunks=tables["lineitem"])["l_orderkey"]]
+    overlay = {} if superchunk_rows is None else \
+        {"tidb_tpu_superchunk_rows": superchunk_rows}
+    ctx = ExecContext(device, tables)
+    with config.session_overlay(overlay):
+        t0 = time.perf_counter()
+        agg_op, having = tpch.q18_inner_plan()
+        ctx.stats.agg_algorithm = agg_algorithm(group_stats, agg_op.aggs)
+        if ctx.stats.agg_algorithm == "hash":
+            agg_op = HashAgg(agg_op.child, agg_op.group_exprs, agg_op.aggs)
+        with _statement(ctx.stats):
+            (chunk,) = agg_op.chunks(ctx)
+        keep = runtime.eval_filter_host(having, chunk)
+        rows = [(int(k),) for k in chunk.columns[0].data[keep]]
+        seconds = time.perf_counter() - t0
+    groups = [chunk.columns[0].data, chunk.columns[1].data]
+    return QueryResult(rows=rows, stats=ctx.stats, seconds=seconds,
+                       tables=tables, groups=groups)

@@ -16,17 +16,22 @@ Pairs come back as (li, ri) index arrays and `_post_match` emits the
 joined rows on the host: inner, left (NULL-extended), semi, anti, and
 the right-unmatched pass.
 
+Memory: the materialized build, the device-resident build lanes, each
+dispatch's probe lanes and pair buffers, the superchunks in flight and
+the staged probe rows bill the operator's memtrack node, as the JAX
+package bills them. Under a statement quota every join with a build of
+_DEVICE_MIN_BUILD rows takes the hybrid path, whose build registers the
+quota spill action.
+
 Left out: the mesh shuffle kernel (the multi-device plane), the cross
-join, MergeJoinExec, and the memtrack, runtime-stats and quota-spill
-hooks (with no quota the reference never stages probe rows, so the
-hybrid probe's staging and drain phase is not carried).
+join, MergeJoinExec and the runtime-stats hooks.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from tidb_tpu_torch import config
+from tidb_tpu_torch import config, memtrack
 from tidb_tpu_torch.chunk import Chunk, Column
 from tidb_tpu_torch.ops import hybrid as op_hybrid
 from tidb_tpu_torch.ops import runtime as op_runtime
@@ -137,7 +142,14 @@ class HashJoin:
     def chunks(self, ctx):
         build = Chunk.concat_all(list(self.right.chunks(ctx)))
         nb = build.num_rows if build is not None else 0
-        yield from self._probe_join(ctx, build, nb)
+        # the materialized build side is the join's dominant host buffer:
+        # held on this operator's ledger for the whole probe phase
+        tracked = memtrack.track_to(
+            self, memtrack.chunk_bytes(build) if nb else 0)
+        try:
+            yield from self._probe_join(ctx, build, nb)
+        finally:
+            memtrack.release(self, host=tracked)
 
     def _probe_join(self, ctx, build, nb: int, prepared=None):
         """`prepared` = (enc, bk, hot, h) from a caller that
@@ -160,7 +172,7 @@ class HashJoin:
             # the caller's engage scan already said yes
             hyb = op_hybrid.HybridJoinBuild(
                 self._kernel, bk, nb, config.join_partitions(), ctx.stats,
-                hot_hashes=pre_hot, h=pre_h)
+                hot_hashes=pre_hot, h=pre_h, plan=self)
         else:
             hyb = self._maybe_hybrid(ctx, bk, nb)
         ctx.stats.join_paths[self.build_label()] = \
@@ -172,6 +184,7 @@ class HashJoin:
                 yield from self._hybrid_probe(ctx, probe_iter, build, hyb,
                                               enc, matched_build)
             finally:
+                ctx.stats.spilled_partitions += hyb.spilled
                 hyb.close()
         elif device_ok:
             yield from self._pipelined_probe(ctx, probe_iter, build, bk,
@@ -240,18 +253,20 @@ class HashJoin:
 
     def _hybrid_engage(self, bk, nb: int):
         """(engage, hot, h): should the partitioned hybrid path carry this
-        build? Decision only, so the fused-fragment eligibility check
-        (executor/agg.HashAgg) can consult it and stand aside. The hot set
-        is the build side's duplication leg alone: no caller gives the
-        port a probe-side CMSketch yet."""
+        build? Under skew, under a statement memory quota (only the
+        hybrid build can shed device memory), or with a build over a
+        superchunk. Decision only, so the fused-fragment eligibility
+        check (executor/agg.HashAgg) can consult it and stand aside. The
+        hot set is the build side's duplication leg alone: no caller
+        gives the port a probe-side CMSketch yet."""
         parts = config.join_partitions()
         if parts <= 1 or nb < self._DEVICE_MIN_BUILD:
             return False, None, None
         h = op_hybrid.build_hashes(bk, nb)
         hot = op_hybrid.detect_hot_hashes(h, config.skew_threshold())
-        # no memory quota in the port yet: the reference's quota leg of
-        # this test is never true without one
-        if not hot.size and nb <= config.superchunk_rows():
+        root = memtrack.current()
+        quota = root is not None and root.quota > 0
+        if not hot.size and not quota and nb <= config.superchunk_rows():
             return False, hot, h
         return True, hot, h
 
@@ -264,20 +279,64 @@ class HashJoin:
             return None
         return op_hybrid.HybridJoinBuild(self._kernel, bk, nb,
                                          config.join_partitions(),
-                                         ctx.stats, hot_hashes=hot, h=h)
+                                         ctx.stats, hot_hashes=hot, h=h,
+                                         plan=self)
 
     def _hybrid_probe(self, ctx, probe_iter, build, hyb, enc,
                       matched_build):
-        """Partitioned probe over a HybridJoinBuild: probe superchunks
-        stream through the dispatch-ahead pipeline, each split into one
-        task per partition it touches (the heavy-hitter lane at index
-        `parts`); a superchunk's emission fires when its LAST task
-        finalizes. Every probe row reaches exactly one _post_match call,
-        so outer-join unmatched detection and semi/anti emission stay
-        exact."""
+        """Partitioned probe over a HybridJoinBuild.
+
+        Phase 1 streams probe superchunks through the dispatch-ahead
+        pipeline: rows route per partition (the heavy-hitter lane at
+        index `parts`), and each (superchunk, partition) task matches
+        against the partition's resident lanes. Once the quota spill
+        action has shed cold build partitions, rows bound for a spilled
+        partition stage on the host instead of re-uploading it. Phase 2
+        drains the staging one partition at a time, re-uploading each
+        spilled build partition once and evicting it when drained.
+
+        A superchunk's emission fires when its LAST task finalizes.
+        Every probe row reaches exactly one _post_match call with its
+        matching complete, so outer-join unmatched detection and
+        semi/anti emission stay exact per subset."""
         kernel = self._kernel
         stats = ctx.stats
+        mt_node = memtrack.op_node(self)
+        staged: list = []      # (pid, sub_chunk, pk lanes, host bytes)
+
+        def dispatch_one(p, pk_sub, hp_sub, n_sub):
+            bdev = hyb.ensure(p)
+            # SNAPSHOT the partition->global row map at dispatch time: a
+            # later promotion re-layouts the build while this token is in
+            # flight, and the pair indices must resolve against the
+            # layout the matcher saw. The pin keeps the partition's
+            # device bytes on the ledger and off the spill action's menu.
+            rows = hyb.build_rows(p)
+            cap = hyb.hot_out_cap(hp_sub) if p == hyb.parts else None
+            db = kernel.dispatch_nbytes(n_sub, cap)
+            memtrack.consume(self, device=db)
+            hyb.pin(p)
+            try:
+                tok = kernel.dispatch(None, pk_sub, len(rows), n_sub,
+                                      out_cap=cap, build_dev=bdev)
+            except BaseException:
+                hyb.unpin(p)
+                memtrack.release(self, device=db)
+                raise
+            stats.hybrid_tasks += 1
+            return p, rows, tok, db
+
+        def finalize_one(t):
+            p, rows, tok, db = t
+            try:
+                li_l, ri_l = kernel.finalize(tok)
+            finally:
+                hyb.unpin(p)
+                memtrack.release(self, device=db)
+            return li_l, rows[ri_l]
+
         pending_promo: list = [None]
+        open_states: dict = {}      # id -> state; bytes held to emission
 
         def task_iter(sc_iter):
             for sc in sc_iter:
@@ -287,69 +346,127 @@ class HashJoin:
                 if pending_promo[0] is not None:
                     hyb.promote(pending_promo[0])
                     pending_promo[0] = None
+                n = sc.num_rows
                 pk = self._probe_keys(enc, sc)
-                hp, tasks = hyb.route(pk, sc.num_rows)
+                hp, tasks = hyb.route(pk, n)
                 pending_promo[0] = hyb.observe(hp)
-                state = {"chunk": sc, "pk": pk, "hp": hp, "li": [],
-                         "ri": [], "left": max(len(tasks), 1)}
-                if not tasks:
-                    # every row unmatched: one sentinel task still flows
-                    # through so the emission fires
-                    yield (state, None, None)
+                staged_mask = np.zeros(n, dtype=bool)
+                imm = []
                 for p, idx in tasks:
+                    if hyb.want_immediate(p):
+                        imm.append((p, idx))
+                        continue
+                    sub = [(d[idx], v[idx]) for d, v in pk]
+                    sub_chunk = sc.take(idx)
+                    sb = memtrack.chunk_bytes(sub_chunk) + \
+                        sum(d.nbytes + v.nbytes for d, v in sub)
+                    if mt_node is not None:
+                        # released in the drain loop or the finally
+                        mt_node.consume(host=sb)
+                    staged.append((p, sub_chunk, sub, sb))
+                    staged_mask[idx] = True
+                    stats.staged_probe_rows += len(idx)
+                sb = memtrack.chunk_bytes(sc)
+                if mt_node is not None:
+                    # held until the superchunk's emission
+                    mt_node.consume(host=sb)
+                state = {"chunk": sc, "pk": pk, "hp": hp,
+                         "mask": staged_mask, "li": [], "ri": [],
+                         "left": max(len(imm), 1), "bytes": sb}
+                open_states[id(state)] = state
+                if not imm:
+                    # every row staged or unmatched: one sentinel task
+                    # still flows through so the emission fires
+                    yield (state, None, None)
+                for p, idx in imm:
                     yield (state, p, idx)
 
         def dispatch(task):
             state, p, idx = task
             if p is None:
                 return None
-            bdev = hyb.ensure(p)
-            # SNAPSHOT the partition->global row map at dispatch time: a
-            # later promotion re-layouts the build while this token is in
-            # flight, and the pair indices must resolve against the
-            # layout the matcher saw
-            rows = hyb.build_rows(p)
-            cap = hyb.hot_out_cap(state["hp"][idx]) if p == hyb.parts \
-                else None
             sub = [(d[idx], v[idx]) for d, v in state["pk"]]
-            hyb.pin(p)
-            try:
-                tok = kernel.dispatch(None, sub, len(rows), len(idx),
-                                      out_cap=cap, build_dev=bdev)
-            except BaseException:
-                hyb.unpin(p)
-                raise
-            stats.hybrid_tasks += 1
-            return p, rows, tok
+            return dispatch_one(p, sub, state["hp"][idx], len(idx))
 
         def finalize(task, tok):
             state, _p, idx = task
             if tok is not None:
-                p, rows, pend = tok
-                try:
-                    li_l, ri_l = kernel.finalize(pend)
-                finally:
-                    hyb.unpin(p)
+                li_l, ri = finalize_one(tok)
                 state["li"].append(idx[li_l])
-                state["ri"].append(rows[ri_l])
+                state["ri"].append(ri)
             state["left"] -= 1
             if state["left"] > 0:
                 return None
+            open_states.pop(id(state), None)
+            if mt_node is not None and state["bytes"]:
+                mt_node.release(host=state["bytes"])
             li = np.concatenate(state["li"]) if state["li"] \
                 else np.empty(0, dtype=np.int64)
             ri = np.concatenate(state["ri"]) if state["ri"] \
                 else np.empty(0, dtype=np.int64)
+            mask = state["mask"]
+            if mask.any():
+                # staged rows' matching is not complete: hand only the
+                # immediately matched subset to _post_match
+                keep = np.flatnonzero(~mask)
+                li = np.searchsorted(keep, li)
+                return state["chunk"].take(keep), li, ri
             return state["chunk"], li, ri
 
         sc_iter = op_runtime.superchunk_batches(probe_iter,
-                                                config.superchunk_rows())
-        for out in op_runtime.pipeline_map(task_iter(sc_iter), dispatch,
-                                           finalize,
-                                           config.pipeline_depth()):
-            if out is not None:
+                                                config.superchunk_rows(),
+                                                tracker=mt_node)
+        try:
+            for out in op_runtime.pipeline_map(task_iter(sc_iter), dispatch,
+                                               finalize,
+                                               config.pipeline_depth()):
+                if out is None:
+                    continue
                 chunk_out, li, ri = out
                 yield from self._post_match(chunk_out, build, li, ri,
                                             matched_build)
+            # phase 2: drain staged cold-partition rows, grouped by
+            # partition so each spilled build uploads exactly once.
+            # Promotions only ever MOVE keys to the always-resident hot
+            # lane, so a staged batch re-routes within {its partition,
+            # hot} and the grouping stays partition-local.
+            staged.sort(key=lambda t: t[0])
+            while staged:
+                p_hint, sub_chunk, pk_sub, sb = staged[0]
+                try:
+                    hp, tasks = hyb.route(pk_sub, sub_chunk.num_rows)
+                    li_parts, ri_parts = [], []
+                    for p, idx in tasks:
+                        lanes = [(d[idx], v[idx]) for d, v in pk_sub]
+                        li_l, ri = finalize_one(
+                            dispatch_one(p, lanes, hp[idx], len(idx)))
+                        li_parts.append(idx[li_l])
+                        ri_parts.append(ri)
+                    li = np.concatenate(li_parts) if li_parts \
+                        else np.empty(0, dtype=np.int64)
+                    ri = np.concatenate(ri_parts) if ri_parts \
+                        else np.empty(0, dtype=np.int64)
+                finally:
+                    staged.pop(0)
+                    if mt_node is not None and sb:
+                        mt_node.release(host=sb)
+                stats.drained_probe_rows += sub_chunk.num_rows
+                yield from self._post_match(sub_chunk, build, li, ri,
+                                            matched_build)
+                if hyb.under_pressure() and \
+                        (not staged or staged[0][0] != p_hint):
+                    hyb.evict(p_hint)
+        finally:
+            if mt_node is not None:
+                for _p, _c, _k, sb in staged:
+                    if sb:
+                        mt_node.release(host=sb)
+                # superchunks abandoned before their last task finalized
+                for state in open_states.values():
+                    if state["bytes"]:
+                        mt_node.release(host=state["bytes"])
+            staged.clear()
+            open_states.clear()
 
     def _pipelined_probe(self, ctx, probe_iter, build, bk, enc,
                          matched_build, nb: int):
@@ -360,31 +477,55 @@ class HashJoin:
         kernel = self._kernel
         stats = ctx.stats
         build_dev = None
+        build_db = 0
+        mt_node = memtrack.op_node(self)
 
         def dispatch(sc):
-            nonlocal build_dev
+            nonlocal build_dev, build_db
             n = sc.num_rows
             pk = self._probe_keys(enc, sc)
             if n < self._DEVICE_MIN_PROBE and nb < self._DEVICE_MIN_BUILD:
                 stats.host_match_batches += 1
-                return ("host", host_match_pairs(bk, pk, nb, n))
+                return ("host", host_match_pairs(bk, pk, nb, n), 0)
             if build_dev is None:
-                # build lanes stay device-resident for the whole probe
+                # build lanes stay device-resident for the whole probe,
+                # held on the device ledger until the generator ends
+                build_db = kernel.build_nbytes(nb)
+                memtrack.consume(self, device=build_db)
                 build_dev = kernel.prepare_build(bk, nb)
+            db = kernel.dispatch_nbytes(n)
+            memtrack.consume(self, device=db)
+            try:
+                tok = kernel.dispatch(bk, pk, nb, n, build_dev=build_dev)
+            except BaseException:
+                memtrack.release(self, device=db)
+                raise
             stats.join_dispatches += 1
-            return ("dev", kernel.dispatch(bk, pk, nb, n,
-                                           build_dev=build_dev))
+            return ("dev", tok, db)
 
         def finalize(sc, tok):
-            kind, payload = tok
-            li, ri = payload if kind == "host" else kernel.finalize(payload)
+            kind, payload, db = tok
+            if kind == "host":
+                li, ri = payload
+            else:
+                try:
+                    li, ri = kernel.finalize(payload)
+                finally:
+                    memtrack.release(self, device=db)
             return sc, li, ri
 
         sc_iter = op_runtime.superchunk_batches(probe_iter,
-                                                config.superchunk_rows())
-        for sc, li, ri in op_runtime.pipeline_map(
-                sc_iter, dispatch, finalize, config.pipeline_depth()):
-            yield from self._post_match(sc, build, li, ri, matched_build)
+                                                config.superchunk_rows(),
+                                                tracker=mt_node)
+        try:
+            for sc, li, ri in op_runtime.pipeline_map(
+                    sc_iter, dispatch, finalize, config.pipeline_depth(),
+                    tracker=mt_node, cost=memtrack.chunk_bytes):
+                yield from self._post_match(sc, build, li, ri,
+                                            matched_build)
+        finally:
+            if build_db:
+                memtrack.release(self, device=build_db)
 
     def _gather(self, left_chunk, build, li, ri):
         cols = [Column(c.ft, c.data[li], c.valid[li])

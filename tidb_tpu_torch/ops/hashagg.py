@@ -398,6 +398,17 @@ def _agg_requests(xp, agg: AggDesc, cols, n, mask, batch: _SegBatch,
     raise NotImplementedError(f"device agg {fn}")
 
 
+def _agg_lanes(xp, agg: AggDesc, cols, n, mask, inv, capacity: int,
+               arange=None):
+    """Single-aggregate convenience wrapper over _agg_requests: one
+    _SegBatch over `inv` (int32 [n]) and `capacity` segments, run at
+    once. -> [(array[capacity], merge_op)]."""
+    b = _SegBatch(inv, capacity)
+    assemble = _agg_requests(xp, agg, cols, n, mask, b, arange=arange)
+    b.run()
+    return assemble(b.get)
+
+
 def _validate_device_exprs(filter_expr, group_exprs, aggs) -> None:
     """Device kernels see dict-encoded int64 codes for varlen columns, so a
     string column may appear ONLY as a bare group-key ColumnRef (or a
@@ -732,6 +743,19 @@ class HashAggregator:
         self._orig: dict[tuple, tuple] = {}
         self._ci = [getattr(g, "ft", g).is_ci for g in group_meta] \
             if group_meta else None
+
+    def approx_bytes(self) -> int:
+        """Rough host footprint of the merged state (dict slots, key
+        tuples and per-agg lane scalars at CPython object costs): the
+        number memtrack bounds under tidb_tpu_mem_quota_query. It scales
+        with the live group count, not the input."""
+        n = len(self._state)
+        if n == 0:
+            return 0
+        st = next(iter(self._state.values()))
+        lanes = sum(len(ls) for ls in st)
+        key = next(iter(self._orig.values()))
+        return n * (96 + 56 * len(key) + 48 * lanes)
 
     def _group_key(self, key: tuple) -> tuple:
         if not self._ci or not any(self._ci):

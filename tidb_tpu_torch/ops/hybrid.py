@@ -17,14 +17,13 @@ capacity or collision miss from sending a whole operator to the host:
 
 Routing runs on the host over `host_hash_keys` (bit-identical to the
 matcher's device hash); each partition's key lanes upload once and stay
-resident on the device across probe batches.
+resident on the device across probe batches. The build bills its
+gathered host copy and every resident partition to its operator's
+memtrack node, and registers a quota spill action that sheds the cold
+resident partitions (executor/join.py then stages probe rows for them
+and drains them partition by partition).
 
-Left out until the port has memtrack, metrics and trace: the memtrack
-ledger nodes and the registered quota-spill action of HybridJoinBuild
-(the port runs as the reference does with no statement root and quota 0:
-no node, and the spill never fires, so probe rows are never staged), the
-JOIN_HOT_ROWS / JOIN_SPILL_PARTITIONS counters and the
-`join.partition` trace span.
+Left out until the port has trace: the `join.partition` span.
 
 Aggregation gets the same treatment via `partitioned_agg`: rows
 radix-partition by group-key hash, each partition re-runs the device
@@ -39,7 +38,7 @@ import threading
 
 import numpy as np
 
-from tidb_tpu_torch import config
+from tidb_tpu_torch import config, memtrack, metrics
 from tidb_tpu_torch.ops import runtime
 from tidb_tpu_torch.ops.hashagg import (CapacityError, CollisionError,
                                         DeviceRejectError, GroupResult,
@@ -159,22 +158,32 @@ def detect_hot_hashes(h: np.ndarray, threshold: int, raw_key=None,
 
 class HybridJoinBuild:
     """Radix-partitioned, device-resident build side of the hybrid hash
-    join, with a heavy-hitter broadcast lane.
+    join, with a heavy-hitter broadcast lane and the memtrack quota
+    spill.
 
     Layout: build rows sort (stably) by partition id, cold partitions
     0..parts-1 by remixed key hash and the hot lane at index `parts`, so
     every partition is one contiguous slice of the gathered key lanes.
     `ensure(p)` uploads a partition's lanes once and keeps them resident
-    across probe batches. `pin`/`unpin` mark in-flight dispatches, so a
-    promotion or `evict` retires a partition's residency only once no
-    pending token reads it.
+    across probe batches. The registered quota spill action
+    (`_quota_spill`) sheds every resident cold partition except the one
+    being probed; after it, `want_immediate` steers newly arriving probe
+    rows for spilled partitions into host staging, which the executor
+    drains partition by partition at the end of the stream. `pin` and
+    `unpin` mark in-flight dispatches, so neither a spill nor a
+    promotion credits back (or retires) a partition a pending token
+    still reads.
 
-    `stats`, when given, counts partition uploads (`partition_uploads`).
-    Threading: the probe driver is the only mutator of the layout arrays;
-    `_mu` protects the residency map and the hot set."""
+    `plan` is the operator whose memtrack node the build bills (none
+    without an active statement root); `stats`, when given, counts
+    partition uploads. Threading: the probe driver is the only mutator
+    of the layout arrays; `_mu` protects the residency map and the hot
+    set against the spill action, which fires on whatever thread crossed
+    the quota."""
 
     def __init__(self, kernel, bk, nb: int, parts: int, stats=None,
-                 hot_hashes=None, threshold: int | None = None, h=None):
+                 hot_hashes=None, threshold: int | None = None, h=None,
+                 plan=None):
         self.kernel = kernel
         self.nb = nb
         self.parts = max(int(parts), 1)
@@ -183,27 +192,47 @@ class HybridJoinBuild:
             if threshold is None else threshold
         self._bk = bk
         self._mu = threading.Lock()
-        self._resident: dict[int, list] = {}    # guarded-by: _mu
+        self._resident: dict[int, tuple] = {}   # guarded-by: _mu
         self._pins: dict[int, int] = {}         # guarded-by: _mu
         self._zombies: dict[int, list] = {}     # guarded-by: _mu
+        self._active = -1                       # guarded-by: _mu
+        self._spill_fired = False               # guarded-by: _mu
+        self.spilled = 0                        # guarded-by: _mu
         self.hot_rows = 0          # probe rows routed through the lane
         self._promotions = 0
         self._obs = None           # streaming probe-side CMSketch
+        # the tracker node is captured HERE: the spill action may fire on
+        # another thread, and the release must hit the ledger charged
+        self._node = memtrack.op_node(plan) if plan is not None else None
+        self._host_tracked = 0                  # guarded-by: _mu
         self.h = h if h is not None else build_hashes(bk, nb)
         self._build_uniq = np.unique(self.h[self.h != _DEAD_BUILD])
         hot = np.asarray(hot_hashes if hot_hashes is not None else [],
                          dtype=np.int64)
         self.hot = np.unique(hot)[:_MAX_HOT]    # guarded-by: _mu
         with self._mu:
-            self._layout_locked()
+            delta = self._layout_locked()
+        try:
+            self._apply_host_delta(delta)
+        except BaseException:
+            # the quota cancel can fire on this very charge, before the
+            # caller's close() exists: credit the gathered copy back here
+            if self._node is not None and self._host_tracked:
+                self._node.release(host=self._host_tracked)
+                self._host_tracked = 0
+            raise
+        self._unregister = memtrack.register_spill(self._quota_spill) \
+            if self._node is not None else (lambda: None)
 
     # -- layout --------------------------------------------------------------
 
-    def _layout_locked(self) -> None:
+    def _layout_locked(self) -> int:
         """(Re)compute the partition layout from the pristine key lanes:
         one stable argsort by partition id, one gather per lane. Caller
         holds _mu and has already drained _resident if the hot set
-        changed."""
+        changed. Returns the host-byte delta of the gathered copy for
+        the caller to apply OUTSIDE the lock (a consume here could fire
+        the quota chain, whose spill action takes _mu)."""
         pid = partition_ids(self.h, self.parts)
         if self.hot.size:
             pid = np.where(np.isin(self.h, self.hot), self.parts, pid)
@@ -223,6 +252,20 @@ class HybridJoinBuild:
         else:
             self._hot_uniq = np.empty(0, dtype=np.int64)
             self._hot_cnt = np.empty(0, dtype=np.int64)
+        if self._node is None:
+            return 0
+        nbytes = sum(d.nbytes + v.nbytes for d, v in self._lanes)
+        delta = nbytes - self._host_tracked
+        self._host_tracked = nbytes
+        return delta
+
+    def _apply_host_delta(self, delta: int) -> None:
+        if self._node is None or not delta:
+            return
+        if delta > 0:
+            self._node.consume(host=delta)
+        else:
+            self._node.release(host=-delta)
 
     def part_span(self, p: int) -> tuple[int, int]:
         return int(self._bounds[p]), int(self._bounds[p + 1])
@@ -237,55 +280,131 @@ class HybridJoinBuild:
         s, e = self.part_span(p)
         return self._order[s:e]
 
-    # -- residency -----------------------------------------------------------
+    # -- residency / spill ---------------------------------------------------
 
     def ensure(self, p: int):
-        """Device-resident key lanes for partition `p`, uploaded on first
-        touch (or after an eviction or promotion)."""
+        """Device-resident key lanes for partition `p`, uploaded (and
+        billed to the device ledger) on first touch or after a spill.
+        Marks `p` active so the quota action cannot shed the partition
+        it is making room for."""
         with self._mu:
-            dev = self._resident.get(p)
-            if dev is not None:
-                return dev
+            self._active = p
+            ent = self._resident.get(p)
+            if ent is not None:
+                return ent[0]
             s, e = self.part_span(p)
             lanes = [(d[s:e], v[s:e]) for d, v in self._lanes]
-        dev = self.kernel.prepare_build(lanes, e - s)
+        nbytes = self.kernel.build_nbytes(max(e - s, 1))
+        if self._node is not None:
+            # may fire the quota chain, including our own spill action,
+            # which skips the active partition
+            self._node.consume(device=nbytes)
+        try:
+            dev = self.kernel.prepare_build(lanes, e - s)
+        except BaseException:
+            if self._node is not None:
+                self._node.release(device=nbytes)
+            raise
         if self.stats is not None:
             self.stats.partition_uploads += 1
         with self._mu:
-            self._resident[p] = dev
+            self._resident[p] = (dev, nbytes)
         return dev
 
     def pin(self, p: int) -> None:
         """Mark one in-flight dispatch against partition `p`: until the
-        matching unpin(), an eviction or promotion keeps the partition's
-        buffers (as a zombie) instead of retiring them."""
+        matching unpin(), neither the quota spill nor a promotion credits
+        the partition's device bytes back (the pending token still reads
+        the buffers)."""
         with self._mu:
             self._pins[p] = self._pins.get(p, 0) + 1
 
     def unpin(self, p: int) -> None:
-        """Drop one in-flight reference; retires any residency a
-        promotion or eviction parked while the partition was pinned."""
+        """Drop one in-flight reference; frees any residency a promotion
+        or eviction parked while the partition was pinned."""
+        freed = 0
         with self._mu:
             left = self._pins.get(p, 1) - 1
             if left > 0:
                 self._pins[p] = left
             else:
                 self._pins.pop(p, None)
-                self._zombies.pop(p, None)
+                for _dev, nbytes in self._zombies.pop(p, ()):
+                    freed += nbytes
+        if freed and self._node is not None:
+            self._node.release(device=freed)
+
+    def want_immediate(self, p: int) -> bool:
+        """Probe partition `p` now? The hot lane and resident partitions
+        always; cold partitions only until the first quota spill. After
+        it their probe rows stage on the host and re-stream in the drain
+        phase (re-uploading an evicted build per probe batch would thrash
+        exactly the memory the spill just freed)."""
+        with self._mu:
+            return p == self.parts or p in self._resident or \
+                not self._spill_fired
+
+    def _quota_spill(self) -> None:
+        """memtrack OOM action: shed every device-resident cold build
+        partition except the active one and the pinned ones (and the hot
+        lane, which stays: it is small by construction and carries the
+        skew). Host key lanes remain, so spilled partitions re-stream
+        later."""
+        freed = 0
+        dropped = []
+        with self._mu:
+            for p in list(self._resident):
+                if p == self._active or p == self.parts or \
+                        p in self._pins:
+                    continue
+                dev, nbytes = self._resident.pop(p)
+                dropped.append(dev)
+                freed += nbytes
+                self.spilled += 1
+            if dropped:
+                self._spill_fired = True
+        n = len(dropped)
+        del dropped          # device references dropped outside the lock
+        if freed:
+            if self._node is not None:
+                self._node.release(device=freed)
+            metrics.counter(metrics.JOIN_SPILL_PARTITIONS, inc=n)
 
     def evict(self, p: int) -> None:
-        """Voluntarily drop one resident partition. A pinned partition
-        parks in the zombie list until its unpin()."""
+        """Voluntarily drop one resident partition (drain phase: a
+        just-drained cold partition makes room for the next). A pinned
+        partition parks in the zombie list until its unpin()."""
         with self._mu:
             ent = self._resident.pop(p, None)
+            if self._active == p:
+                self._active = -1
             if ent is not None and p in self._pins:
                 self._zombies.setdefault(p, []).append(ent)
+                ent = None
+        if ent is not None and self._node is not None:
+            self._node.release(device=ent[1])
+
+    def under_pressure(self) -> bool:
+        with self._mu:
+            return self._spill_fired
 
     def close(self) -> None:
-        """Drop every device reference (the probe generator's finally)."""
+        """Release every ledgered byte, drop every device reference and
+        unhook the spill action (the probe generator's finally)."""
+        self._unregister()
         with self._mu:
+            freed = sum(nb for _dev, nb in self._resident.values())
+            freed += sum(nb for ents in self._zombies.values()
+                         for _dev, nb in ents)
             self._resident.clear()
             self._zombies.clear()
+            host = self._host_tracked
+            self._host_tracked = 0
+        if self._node is not None:
+            if freed:
+                self._node.release(device=freed)
+            if host:
+                self._node.release(host=host)
 
     # -- probe routing -------------------------------------------------------
 
@@ -302,7 +421,10 @@ class HybridJoinBuild:
         pid = partition_ids(hp, self.parts)
         if is_hot is not None:
             pid = np.where(is_hot, self.parts, pid)
-            self.hot_rows += int(is_hot.sum())
+            nhot = int(is_hot.sum())
+            if nhot:
+                self.hot_rows += nhot
+                metrics.counter(metrics.JOIN_HOT_ROWS, inc=nhot)
         order = np.argsort(pid, kind="stable")
         spid = pid[order]
         tasks = []
@@ -361,6 +483,7 @@ class HybridJoinBuild:
         Re-layouts the build (one argsort) and drops residency:
         partitions re-upload lazily with the new layout. Bounded by
         _MAX_PROMOTIONS / _MAX_HOT."""
+        freed = 0
         with self._mu:
             if self._promotions >= _MAX_PROMOTIONS or \
                     self.hot.size + hashes.size > _MAX_HOT:
@@ -370,9 +493,15 @@ class HybridJoinBuild:
             for p in list(self._resident):
                 ent = self._resident.pop(p)
                 if p in self._pins:
-                    # still read by an in-flight token
+                    # still read by an in-flight token: its bytes stay
+                    # charged until its unpin() retires them
                     self._zombies.setdefault(p, []).append(ent)
-            self._layout_locked()
+                else:
+                    freed += ent[1]
+            delta = self._layout_locked()
+        if freed and self._node is not None:
+            self._node.release(device=freed)
+        self._apply_host_delta(delta)
         return True
 
 

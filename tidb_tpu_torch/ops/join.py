@@ -241,6 +241,20 @@ class JoinKernel:
         self.num_keys = num_keys
         self.device = runtime.resolve_device(device)
 
+    def build_nbytes(self, nb: int) -> int:
+        """Device bytes prepare_build stages: one padded 8-byte data lane
+        plus a bool validity lane per key."""
+        return self.num_keys * 9 * runtime.bucket_size(max(nb, 1))
+
+    def dispatch_nbytes(self, np_: int, out_cap: int | None = None) -> int:
+        """Device bytes one probe dispatch stages, from shapes alone: the
+        padded probe key lanes plus the static-capacity pair buffers (li
+        and ri int64, ok bool). Billed at dispatch, credited back at
+        finalize."""
+        cap = out_cap or runtime.bucket_size(max(np_ * 2, 1024))
+        return self.num_keys * 9 * runtime.bucket_size(max(np_, 1)) \
+            + cap * 17
+
     def prepare_build(self, build_keys, nb: int):
         """Pad + transfer the build-side key lanes once; the returned
         device lanes feed every probe batch's dispatch."""

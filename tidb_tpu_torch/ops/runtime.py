@@ -41,31 +41,56 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def superchunk_batches(chunks, limit: int):
+def superchunk_batches(chunks, limit: int, tracker=None):
     """Coalesce a chunk stream into ~limit-row superchunks: device
     dispatches stay large while host memory stays O(limit). Oversize
     chunks are sliced; 0-row chunks fold away. A chunk that is exactly
     one superchunk passes through as the same object, so its device memo
-    (device_put_chunk) serves the next run over it."""
+    (device_put_chunk) serves the next run over it.
+
+    `tracker` (a memtrack.MemTracker) accounts the assembly buffer: bytes
+    are held while chunks wait in it and credited back when the
+    superchunk is yielded (ownership passes to the consumer)."""
+    from tidb_tpu_torch import memtrack
     limit = max(int(limit), 1)    # a 0/negative sysvar must not hang
-    buf, total = [], 0
-    for c in chunks:
-        start = 0
-        while start < c.num_rows:
-            take = min(c.num_rows - start, limit - total)
-            piece = c if (start == 0 and take == c.num_rows) \
-                else c.slice(start, start + take)
-            buf.append(piece)
-            total += take
-            start += take
-            if total >= limit:
-                yield Chunk.concat_all(buf)
-                buf, total = [], 0
-    if buf:
-        yield Chunk.concat_all(buf)
+    buf, total, staged = [], 0, 0
+
+    def emit():
+        nonlocal staged
+        big = Chunk.concat_all(buf)
+        if tracker is not None and staged:
+            tracker.release(host=staged)
+            staged = 0
+        return big
+
+    try:
+        for c in chunks:
+            start = 0
+            while start < c.num_rows:
+                take = min(c.num_rows - start, limit - total)
+                piece = c if (start == 0 and take == c.num_rows) \
+                    else c.slice(start, start + take)
+                buf.append(piece)
+                if tracker is not None:
+                    b = memtrack.chunk_bytes(piece)
+                    tracker.consume(host=b)
+                    staged += b
+                total += take
+                start += take
+                if total >= limit:
+                    yield emit()
+                    buf, total = [], 0
+        if buf:
+            yield emit()
+    finally:
+        # abandoned or raised mid-assembly: what still sits in the
+        # buffer was never handed to a consumer
+        if tracker is not None and staged:
+            tracker.release(host=staged)
 
 
-def pipeline_map(items, dispatch, finalize, depth: int):
+def pipeline_map(items, dispatch, finalize, depth: int, tracker=None,
+                 cost=None):
     """Depth-N dispatch-ahead map over an item stream: up to `depth`
     dispatched items are in flight before the oldest is finalized, so
     item k+1's host-side prep (padding, packing, the non-blocking copy)
@@ -75,23 +100,43 @@ def pipeline_map(items, dispatch, finalize, depth: int):
     dispatch(item) -> token must only ENQUEUE work. finalize(item, token)
     is the one blocking point (the readback at the operator output
     boundary). A consumer that stops early still finalizes every
-    dispatched token, so no device work is left unread."""
+    dispatched token, so no device work is left unread.
+
+    With `tracker` and `cost` set, each in-flight item holds cost(item)
+    host bytes on the tracker from its dispatch until its finalize
+    returns: the depth-N window is the memory the pipeline pins."""
     depth = max(int(depth), 1)
     pending: deque = deque()
+    track = tracker is not None and cost is not None
+
+    def pop_finalize():
+        prev, tok, held = pending.popleft()
+        try:
+            return finalize(prev, tok)
+        finally:
+            if held:
+                tracker.release(host=held)
+
     try:
         for it in items:
             while len(pending) >= depth:
-                prev, tok = pending.popleft()
-                yield finalize(prev, tok)
-            pending.append((it, dispatch(it)))
+                yield pop_finalize()
+            held = cost(it) if track else 0
+            if held:
+                tracker.consume(host=held)
+            try:
+                tok = dispatch(it)
+            except BaseException:
+                if held:
+                    tracker.release(host=held)
+                raise
+            pending.append((it, tok, held))
         while pending:
-            prev, tok = pending.popleft()
-            yield finalize(prev, tok)
+            yield pop_finalize()
     finally:
         while pending:
-            prev, tok = pending.popleft()
             try:
-                finalize(prev, tok)
+                pop_finalize()
             except Exception:
                 pass    # abandoned: the result is discarded either way
 
