@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py [--sf 10] [--q18-sf SF] [--seed 42] [--profile]
+    python3 chip_smoke.py [--sf 10] [--seed 42] [--profile]
 
 Phases, one JSON line each:
   env     torch and CUDA versions, the card's name and power limit
@@ -25,13 +25,13 @@ Phases, one JSON line each:
           the ledger reads 0 afterwards
   analyze ANALYZE of six lineitem columns at --sf (60,012,150 rows each
           at SF 10): statistics.build_column_stats sorts each on the card
-          (ops/stats.device_sort, one torch.sort) and its ColumnStats
-          (NDV, nulls, every bucket, the CMSketch table) must equal one
-          built from np.sort on the host; the device sort must equal
-          np.sort; per column, the device times of the sort alone and of
-          the sort with its transfers, and the host time of the rest
-  q18     TPC-H Q18's inner block at --q18-sf (default 2, or --sf where
-          that is smaller): ANALYZE of l_orderkey,
+          (ops/stats.device_sort, one torch.sort); that sort must equal
+          np.sort, and the statistics' NDV, NULL count and totals must
+          equal np.sort's; per column, the device time of the sort alone,
+          the time of the build's device_sort with its transfers, and the
+          host time of the rest
+  q18     TPC-H Q18's inner block at SF 2 (Q18_SF, or --sf where that is
+          smaller): ANALYZE of l_orderkey,
           the NDV rule must pick the stream agg, run_q18_inner's rows and
           every group before the HAVING must equal numpy truths
           (np.bincount); the segment-sum kernel launched, the sorter
@@ -488,8 +488,11 @@ def run_quota(run, dev, qtables, truth, first: dict) -> dict:
 
 
 def analyze_phase(args, dev, tables) -> dict:
-    """ANALYZE of six lineitem columns on the card, each held against the
-    host build from np.sort."""
+    """ANALYZE of six lineitem columns on the card. The sort that each
+    build_column_stats call makes on the card must equal np.sort, and the
+    statistics' NDV, NULL count and row totals must equal np.sort's
+    output (the histogram and CMSketch are held against the JAX package
+    in tests/test_torch_stats.py)."""
     from tidb_tpu_torch import statistics
     from tidb_tpu_torch.benchmarks import tpch
     from tidb_tpu_torch.ops import stats
@@ -497,58 +500,66 @@ def analyze_phase(args, dev, tables) -> dict:
     for name in ("l_quantity", "l_discount", "l_tax", "l_shipdate",
                  "l_commitdate", "l_receiptdate"):
         col = tpch.table_column(tables["lineitem"], "lineitem", name)
-        data = col.data
         # the sort alone, on a column already on the card
-        x = torch.from_numpy(stats.pad_for_sort(data)).to(dev)
+        x = torch.from_numpy(stats.pad_for_sort(col.data)).to(dev)
         torch.sort(x)
-        t = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         t[0].record()
         torch.sort(x)
         t[1].record()
-        # device_sort as ANALYZE calls it: transfers in and out included
-        t[2].record()
-        got = stats.device_sort(data, dev)
-        t[3].record()
         torch.cuda.synchronize()
         del x
         t0 = time.perf_counter()
-        want = np.sort(data)
+        want = np.sort(col.data[col.valid])
         host_sort_s = time.perf_counter() - t0
-        if not np.array_equal(got, want):
-            raise AssertionError(f"analyze {name}: device_sort differs "
-                                 "from np.sort")
-        t0 = time.perf_counter()
-        cs = statistics.build_column_stats(col, device=dev)
-        build_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        host = statistics.stats_from_sorted(
-            want, int((~col.valid).sum()))
-        rest_s = time.perf_counter() - t0
-        if cs.hist.to_obj() != host.hist.to_obj() or \
-                cs.cms.count != host.cms.count or \
-                not np.array_equal(cs.cms.table, host.cms.table):
-            raise AssertionError(f"analyze {name}: ColumnStats differ from "
-                                 "the host build")
+        # the build's own device_sort call, copies in and out included
+        sorts = []
+        device_sort = stats.device_sort
+
+        def timed(data, device):
+            t0 = time.perf_counter()
+            s = device_sort(data, device)
+            sorts.append((s, time.perf_counter() - t0))
+            return s
+        stats.device_sort = timed
+        try:
+            t0 = time.perf_counter()
+            cs = statistics.build_column_stats(col, device=dev)
+            build_s = time.perf_counter() - t0
+        finally:
+            stats.device_sort = device_sort
+        if len(sorts) != 1 or not np.array_equal(sorts[0][0], want):
+            raise AssertionError(f"analyze {name}: {len(sorts)} device "
+                                 "sorts, or the sort differs from np.sort")
+        ndv = 1 + int(np.count_nonzero(want[1:] != want[:-1]))
+        nulls = int((~col.valid).sum())
+        h = cs.hist
+        got = (h.ndv, h.null_count, h.total, cs.cms.count)
+        if got != (ndv, nulls, want.size, want.size):
+            raise AssertionError(f"analyze {name}: ndv, nulls and totals "
+                                 f"{got}; np.sort gives {ndv}, {nulls}, "
+                                 f"{want.size}")
         out["columns"][name] = {
-            "rows": int(data.size), "ndv": cs.hist.ndv,
-            "buckets": cs.hist.num_buckets,
+            "rows": int(col.data.size), "ndv": h.ndv,
+            "buckets": h.num_buckets,
             "sort_device_ms": t[0].elapsed_time(t[1]),
-            "device_sort_with_transfers_ms": t[2].elapsed_time(t[3]),
+            "device_sort_with_transfers_s": sorts[0][1],
             "build_column_stats_s": build_s,
-            "host_rest_s": rest_s, "np_sort_s": host_sort_s}
+            "host_rest_s": build_s - sorts[0][1], "np_sort_s": host_sort_s}
     return out
 
 
 def q18_phase(args, dev, d, tables, recorded) -> dict:
-    """Q18's inner block at --q18-sf: ANALYZE, the NDV rule, StreamAgg
-    over the spill sorter, the HAVING; its segment_sum calls go to
-    recorded["q18"]."""
+    """Q18's inner block at min(--sf, Q18_SF): ANALYZE, the NDV rule,
+    StreamAgg over the spill sorter, the HAVING; its segment_sum calls go
+    to recorded["q18"]."""
     from tidb_tpu_torch.benchmarks import segsum_bench, tpch
     from tidb_tpu_torch.executor import agg
     from tidb_tpu_torch.ops import segsum, streamagg
+    sf = min(args.sf, Q18_SF)
     t0 = time.perf_counter()
-    if args.q18_sf != args.sf:
-        d = tpch.ScaledTpch(args.q18_sf, args.seed)
+    if sf != args.sf:
+        d = tpch.ScaledTpch(sf, args.seed)
         tables = tpch.table_chunks(d, ["lineitem"], 1 << 18)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -595,7 +606,7 @@ def q18_phase(args, dev, d, tables, recorded) -> dict:
         raise AssertionError(f"q18: the ledger still holds {st.mem_left} "
                              "bytes")
     nrows = d.counts["lineitem"]
-    return {"phase": "q18", "sf": args.q18_sf, "seed": args.seed,
+    return {"phase": "q18", "sf": sf, "seed": args.seed,
             "lineitem_rows": nrows, "generate_s": gen_s,
             "truth_s": truth_s, "analyze_s": analyze_s,
             "l_orderkey_ndv": cs.hist.ndv, "agg_algorithm": algo,
@@ -663,16 +674,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
                     help="TPC-H scale factor (default 10)")
-    ap.add_argument("--q18-sf", type=float, default=None,
-                    help="scale factor of the q18 phase (default: "
-                         f"{Q18_SF}, or --sf where that is smaller)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", action="store_true",
                     help="add one more run of each query under "
                          "torch.profiler")
     args = ap.parse_args()
-    if args.q18_sf is None:
-        args.q18_sf = min(args.sf, Q18_SF)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1

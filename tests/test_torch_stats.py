@@ -120,12 +120,20 @@ def test_build_column_stats_strings():
     assert ps.equal_count("yy") == js.equal_count("yy")
 
 
-def test_stats_from_sorted_is_the_build():
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_build_column_stats_narrow_dtypes(dtype):
+    # the other two of the four dtypes that sort on the device
+    n = (1 << 17) + 5
     rng = np.random.default_rng(8)
-    data = rng.integers(0, 3000, 20000)
-    col = PColumn(st.new_int_field(), data, np.ones(data.size, bool))
-    _same_stats(pstats.stats_from_sorted(np.sort(data)),
-                pstats.build_column_stats(col, device="cpu"))
+    data = rng.integers(0, 3000, n).astype(dtype)
+    if dtype == np.float32:
+        data /= 8
+    valid = np.ones(n, bool)
+    ps = pstats.build_column_stats(PColumn(st.new_int_field(), data, valid),
+                                   device="cpu")
+    _same_stats(ps, jstats.build_column_stats(
+        JColumn(st.new_int_field(), data.copy(), valid.copy())))
+    assert ps.hist.ndv == np.unique(data).size
 
 
 def test_histogram_round_trips():

@@ -398,17 +398,6 @@ def _agg_requests(xp, agg: AggDesc, cols, n, mask, batch: _SegBatch,
     raise NotImplementedError(f"device agg {fn}")
 
 
-def _agg_lanes(xp, agg: AggDesc, cols, n, mask, inv, capacity: int,
-               arange=None):
-    """Single-aggregate convenience wrapper over _agg_requests: one
-    _SegBatch over `inv` (int32 [n]) and `capacity` segments, run at
-    once. -> [(array[capacity], merge_op)]."""
-    b = _SegBatch(inv, capacity)
-    assemble = _agg_requests(xp, agg, cols, n, mask, b, arange=arange)
-    b.run()
-    return assemble(b.get)
-
-
 def _validate_device_exprs(filter_expr, group_exprs, aggs) -> None:
     """Device kernels see dict-encoded int64 codes for varlen columns, so a
     string column may appear ONLY as a bare group-key ColumnRef (or a

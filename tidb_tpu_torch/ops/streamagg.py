@@ -16,10 +16,12 @@ hash). Partials of one chunk merge across chunk boundaries on the host
 in HashAggregator, as the hash path's do.
 
 Deviations from the JAX package:
-  * the count lane and every sum lane go through `hashagg._SegBatch` into
-    ops/segsum.segment_sum, the hand-written segment-sum kernel on CUDA,
-    at C = the padded rows; the JAX package calls jax.ops.segment_sum
-    there (as for Q1's int64 lanes, see ops/segsum.py);
+  * the count lane and every sum lane go through one `hashagg._SegBatch`
+    into ops/segsum.segment_sum, the hand-written segment-sum kernel on
+    CUDA, at C = the padded rows: one stacked launch per dtype, where the
+    JAX package runs one jax.ops.segment_sum batch for the count and one
+    per aggregate (`_agg_lanes`), which XLA fuses and eager torch would
+    launch one by one (as for Q1's int64 lanes, see ops/segsum.py);
   * no donation twin (`_jitd`): torch runs the ops eagerly and there is
     no input buffer to donate; `dispatch` takes no `donate` flag;
   * the profiler and device-plane hooks of `segment_kernel_for` wait for
@@ -36,8 +38,9 @@ import torch
 from tidb_tpu_torch.chunk import Chunk
 from tidb_tpu_torch.expression import AggDesc, Expression
 from tidb_tpu_torch.ops import runtime, tnp
-from tidb_tpu_torch.ops.hashagg import (GroupResult, _agg_lanes, _columns_used,
-                                        _key_bits, _pack, _readback, _SegBatch,
+from tidb_tpu_torch.ops.hashagg import (GroupResult, _agg_requests,
+                                        _columns_used, _key_bits, _pack,
+                                        _readback, _SegBatch,
                                         _validate_device_exprs,
                                         finalize_group_result)
 
@@ -80,13 +83,15 @@ class SegmentAggKernel:
         seg = torch.cumsum(new, 0, dtype=torch.int32) - 1
         seg = torch.clamp(seg, 0, n - 1)       # all-padding chunk guard
         nseg = torch.sum(new, dtype=torch.int64)
+        # one batch: the count lane and every aggregate's sum lanes of a
+        # dtype stack into one segment-sum launch
         b = _SegBatch(seg, n)
         i_cnt = b.add(alive.to(torch.int64), "sum")
         i_rep = b.add(torch.where(alive, arange, n), "min")
+        assembles = [_agg_requests(xp, a, cols, n, alive, b, arange=arange)
+                     for a in self.aggs]
         b.run()
-        lanes = [[lane for lane, _op in
-                  _agg_lanes(xp, a, cols, n, alive, seg, n, arange=arange)]
-                 for a in self.aggs]
+        lanes = [[lane for lane, _op in asm(b.get)] for asm in assembles]
         return nseg, b.get(i_cnt), b.get(i_rep), lanes
 
     def scratch_nbytes(self, chunk: Chunk) -> int:

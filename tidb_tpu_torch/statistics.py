@@ -23,7 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 __all__ = ["Histogram", "CMSketch", "ColumnStats", "build_histogram",
-           "build_column_stats", "stats_from_sorted", "cm_key", "CM_DEPTH",
+           "build_column_stats", "cm_key", "CM_DEPTH",
            "CM_WIDTH", "DEFAULT_BUCKETS"]
 
 DEFAULT_BUCKETS = 256
@@ -268,14 +268,6 @@ def _device_sort(data: np.ndarray, device) -> np.ndarray:
     return np.sort(data, kind="stable")
 
 
-def _distinct_of_sorted(s: np.ndarray) -> tuple[list, np.ndarray]:
-    """(distinct values asc, counts) of a sorted numeric column."""
-    edge = np.flatnonzero(s[1:] != s[:-1])
-    starts = np.concatenate(([0], edge + 1))
-    counts = np.diff(np.concatenate((starts, [len(s)])))
-    return list(s[starts]), counts
-
-
 def _distinct_sorted(col, device) -> tuple[list, np.ndarray, int]:
     """(distinct values asc, counts, null_count) from a chunk Column."""
     valid = np.asarray(col.valid)
@@ -289,9 +281,11 @@ def _distinct_sorted(col, device) -> tuple[list, np.ndarray, int]:
             vals[v] = vals.get(v, 0) + 1
         keys = sorted(vals)
         return keys, np.array([vals[k] for k in keys], np.int64), null_count
-    vals, counts = _distinct_of_sorted(
-        _device_sort(np.ascontiguousarray(data), device))
-    return vals, counts, null_count
+    s = _device_sort(np.ascontiguousarray(data), device)
+    edge = np.flatnonzero(s[1:] != s[:-1])
+    starts = np.concatenate(([0], edge + 1))
+    counts = np.diff(np.concatenate((starts, [len(s)])))
+    return list(s[starts]), counts, null_count
 
 
 def _column_stats(vals, counts, nulls: int, n_buckets: int) -> ColumnStats:
@@ -310,10 +304,3 @@ def build_column_stats(col, n_buckets: int = DEFAULT_BUCKETS,
     from tidb_tpu_torch.ops import runtime
     device = runtime.resolve_device(device)
     return _column_stats(*_distinct_sorted(col, device), n_buckets)
-
-
-def stats_from_sorted(s: np.ndarray, null_count: int = 0,
-                      n_buckets: int = DEFAULT_BUCKETS) -> ColumnStats:
-    """The ColumnStats of a numeric column whose non-NULL values, sorted
-    by any means, are `s`: what build_column_stats gives for it."""
-    return _column_stats(*_distinct_of_sorted(s), null_count, n_buckets)
