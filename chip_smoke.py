@@ -37,10 +37,31 @@ Phases, one JSON line each:
           (np.bincount); the segment-sum kernel launched, the sorter
           spilled runs to disk, no fallback, no host sync in the first
           SegmentAggKernel dispatch, and the ledger reads 0 afterwards
+  store   TPC-H Q1 served from the mock TiKV store at SF 1 (STORE_SF, or
+          --sf where smaller): ScaledTpch bulk-loaded (tpch.load_store,
+          lineitem and orders in 4 regions), then run_q1_store five times
+          at the default sysvars (streaming cop, chunk cache, 2 GiB HBM
+          block cache, fused scan, delta store): cold (framed scan and
+          decode, a dispatch per frame, chunk-cache fill at the stream's
+          end); first warm (one HBM block filled per region, one fused
+          dispatch each); second warm (every region a hit, no host->device
+          byte); after an OLTP batch of 4,000 updates, 1,000 inserts (one
+          with an l_returnflag the block's dictionary lacks) and 1,000
+          deletes in one region (that block patched on the card, the rest
+          hits); after 4,000 more updates (past tidb_tpu_delta_merge_rows:
+          the delta store merges and the region re-fills). Every run equals
+          an exact numpy truth over the mutated arrays and leaves the
+          statement's ledger at 0. Before them, on a store of its own at
+          SF 0.1 (CHECK_SF) fanned out on one thread, the process's first
+          fused dispatch and first patch (of a 64-row batch) run under
+          sync-debug "error"; the patch's device program (B11) is timed
+          by CUDA events, the whole patch by the host clock; the
+          hbm-cache ledger node returns to 0 at shed()
   kernel  each kernel against its plain torch version on the card, over
           dtypes, masks and shapes (checked before q1); then, at every
-          shape the cold Q1 run, the first Q3 and Q5 runs and the Q18 run
-          gave it (their calls recorded by segsum_bench.record_calls),
+          shape the cold Q1 run, the first Q3 and Q5 runs, the Q18 run and
+          the store's cold, first warm and patched runs gave it (their
+          calls recorded by segsum_bench.record_calls),
           held again on those
           very inputs and timed: device time beside its host time per
           call, the plain version, one PyTorch library call and the bound;
@@ -49,7 +70,9 @@ Phases, one JSON line each:
   kernels one line listing every kernel at each of those shapes, with its
           launches there on its path, its parity and its times
 With --profile, each of q1, q3 and q5 adds torch.profiler tables of one
-more run: device time by kernel, host time by op, device idle share.
+more run: device time by kernel, host time by op, device idle share; the
+store phase adds a hot and a cold run so profiled, fanned out on one
+thread.
 The card's name and power limit (as nvidia-smi gives them) stand on a
 line of their own, and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -77,6 +100,19 @@ import torch
 # runs at the largest scale factor that keeps it under about two minutes
 # on the H100's host (SF 1 took 47 s, ANALYZE included; PERF.md)
 Q18_SF = 2.0
+
+# The store phase loads TPC-H into the mock TiKV store (every KV pair a
+# Python object) and decodes each lineitem row of the cold scan on the
+# host, so it runs at SF 1 (STORE_SF, or --sf where smaller): the JAX
+# package's own scale for this path, where the four resident lineitem
+# blocks (2,097,152 padded rows x 12 columns) fit the 2 GiB block cache
+STORE_SF = 1.0
+# The store phase's host-sync checks run first, on a store of their own
+# at this scale factor (or --sf where smaller): sync-debug mode is
+# process-wide, so they fan out on one thread, and one-time work they do
+# (the host chunks' dictionary encodes, a block's first-patch position
+# map) must not land ahead of the timed runs
+CHECK_SF = 0.1
 
 
 def emit(obj) -> None:
@@ -324,16 +360,19 @@ def run_q1_phase(args, dev, d, chunks, gen_s, recorded) -> dict:
 
 
 class SyncFreeFirstDispatch:
-    """Runs the first call of each wrapped `dispatch` method under
-    torch.cuda.set_sync_debug_mode("error"), so a host sync inside it
-    raises; records which classes were checked."""
+    """Runs the first call of each wrapped `dispatch` method (or of the
+    method named `method`) under torch.cuda.set_sync_debug_mode("error"),
+    so a host sync inside it raises; records which classes were
+    checked."""
 
-    def __init__(self, *classes):
+    def __init__(self, *classes, method="dispatch"):
         self.classes = classes
+        self.method = method
         self.checked = []
 
     def __enter__(self):
-        self.saved = [(cls, cls.dispatch) for cls in self.classes]
+        self.saved = [(cls, getattr(cls, self.method))
+                      for cls in self.classes]
         for cls, orig in self.saved:
             def wrapped(obj, *a, _cls=cls, _orig=orig, **kw):
                 if _cls.__name__ in self.checked:
@@ -346,12 +385,12 @@ class SyncFreeFirstDispatch:
                     torch.cuda.set_sync_debug_mode("default")
                 self.checked.append(_cls.__name__)
                 return out
-            cls.dispatch = wrapped
+            setattr(cls, self.method, wrapped)
         return self
 
     def __exit__(self, *exc):
         for cls, orig in self.saved:
-            cls.dispatch = orig
+            setattr(cls, self.method, orig)
         return False
 
 
@@ -624,6 +663,284 @@ def q18_phase(args, dev, d, tables, recorded) -> dict:
                 resource.RUSAGE_SELF).ru_maxrss}
 
 
+class TimedPatches:
+    """Times each delta patch: DeviceCache._patch_locked by the host
+    clock (the position index, the dictionary extension, the launch of
+    the device program), and its device program (device_cache.
+    scatter_block, B11: the clones and index copies with their one
+    pinned copy) by a CUDA event pair around it, read by `finish()`
+    after the run, so the patch itself never waits for the card."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from tidb_tpu_torch.store import device_cache
+        self.orig = orig = device_cache.DeviceCache._patch_locked
+        self.orig_scatter = scatter = device_cache.scatter_block
+
+        # _patch_locked runs under the cache's lock, so one patch (and
+        # its scatter) runs at a time
+        def timed_scatter(cols, *a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = scatter(cols, *a, **kw)
+            ev[1].record()
+            self.events = ev
+            self.lane_bytes = sum(d.numel() * d.element_size() + v.numel()
+                                  for d, v in cols)
+            return out
+
+        def timed(cache, *a, **kw):
+            self.events = self.lane_bytes = None
+            t0 = time.perf_counter()
+            out = orig(cache, *a, **kw)
+            self.calls.append({"host_ms": (time.perf_counter() - t0) * 1e3,
+                               "events": self.events,
+                               "lane_bytes": self.lane_bytes,
+                               "patched": out is not None})
+            return out
+        device_cache.DeviceCache._patch_locked = timed
+        device_cache.scatter_block = timed_scatter
+        return self
+
+    def __exit__(self, *exc):
+        from tidb_tpu_torch.store import device_cache
+        device_cache.DeviceCache._patch_locked = self.orig
+        device_cache.scatter_block = self.orig_scatter
+        return False
+
+    def finish(self) -> list:
+        """Each patch's device program time from its event pair, once
+        the run has ended."""
+        torch.cuda.synchronize()
+        for c in self.calls:
+            ev = c.pop("events")
+            c["scatter_device_ms"] = ev[0].elapsed_time(ev[1]) if ev \
+                else None
+        return self.calls
+
+
+def store_sync_checks(args, dev) -> dict:
+    """The process's first fused dispatch and first delta patch under
+    sync-debug "error", on a store of their own at min(--sf, CHECK_SF),
+    fanned out on one thread: a cold run fills the chunk cache, a warm
+    run fills the HBM blocks and dispatches fused over them, then a
+    64-row batch in the last region and a run that patches its block.
+    Each run's rows equal the numpy truth and its ledger ends at 0."""
+    from tidb_tpu_torch import config
+    from tidb_tpu_torch.benchmarks import tpch
+    from tidb_tpu_torch.executor.agg import run_q1_store
+    from tidb_tpu_torch.ops import hashagg
+    from tidb_tpu_torch.store import device_cache
+    from tidb_tpu_torch.store.storage import new_mock_storage
+    sf = min(args.sf, CHECK_SF)
+    d = tpch.ScaledTpch(sf, args.seed)
+    storage = new_mock_storage(device=dev)
+    storage.async_commit_secondaries = False
+    tpch.load_store(storage, d)
+    mirror = tpch.Q1Mirror(d)
+    cache = storage.device_cache
+    out = {"sf": sf}
+
+    def run(name, check):
+        with check as chk:
+            res = run_q1_store(device=dev, storage=storage)
+        if res.rows != mirror.truth() or res.stats.mem_left:
+            raise AssertionError(f"store sync check {name}: rows differ "
+                                 "from the truth or the ledger holds "
+                                 f"{res.stats.mem_left} B")
+        out[name] = chk.checked if chk is not None else None
+
+    try:
+        with config.session_overlay({"tidb_tpu_cop_concurrency": 1}):
+            run("cold", contextlib.nullcontext())
+            run("fill", SyncFreeFirstDispatch(hashagg.HashAggKernel))
+            if len(cache) != 4 or out["fill"] != ["HashAggKernel"]:
+                raise AssertionError(f"store sync check: the fused "
+                                     f"dispatch went unchecked, {out}")
+            n = d.counts["lineitem"]
+            b0 = tpch.write_batch(d, np.arange(3 * (n // 4), n),
+                                  args.seed + 3, 64)
+            tpch.commit_batch(storage, b0)
+            mirror.apply(b0)
+            run("patch", SyncFreeFirstDispatch(device_cache.DeviceCache,
+                                               method="_patch_locked"))
+            if cache.patches != 1 or out["patch"] != ["DeviceCache"]:
+                raise AssertionError(f"store sync check: the patch went "
+                                     f"unchecked, {out}")
+    finally:
+        storage.close()
+    return out
+
+
+def store_phase(args, dev, recorded) -> dict:
+    """TPC-H Q1 served from the mock TiKV store at min(--sf, STORE_SF):
+    load, five run_q1_store runs at the default sysvars around two OLTP
+    write batches, each held exactly against the numpy truth of the
+    mutated arrays; the cold, first warm and patched runs' segment_sum
+    calls go to recorded["store-*"]. The host-sync checks run first, on
+    a store of their own (store_sync_checks)."""
+    from tidb_tpu_torch import config, metrics
+    from tidb_tpu_torch.benchmarks import segsum_bench, tpch
+    from tidb_tpu_torch.executor.agg import run_q1_store
+    from tidb_tpu_torch.ops import runtime, segsum
+    from tidb_tpu_torch.store import delta, device_cache
+    from tidb_tpu_torch.store.storage import new_mock_storage
+    sf = min(args.sf, STORE_SF)
+    t0 = time.perf_counter()
+    d = tpch.ScaledTpch(sf, args.seed)
+    gen_s = time.perf_counter() - t0
+    storage = new_mock_storage(device=dev)
+    # a batch's secondaries commit before commit() returns: the next run
+    # reads the whole batch through the delta journal (under the default
+    # asynchronous secondaries, a read straight after a commit meets
+    # their locks and scans that region instead)
+    storage.async_commit_secondaries = False
+    t0 = time.perf_counter()
+    loaded = tpch.load_store(storage, d)
+    load_s = time.perf_counter() - t0
+    mirror = tpch.Q1Mirror(d)
+    cache = storage.device_cache
+    node = device_cache.tracker()
+    n = d.counts["lineitem"]
+    regions = 4
+    out = {"phase": "store", "sf": sf, "seed": args.seed,
+           "lineitem_rows": n, "rows_loaded": loaded, "generate_s": gen_s,
+           "load_s": load_s, "regions": regions,
+           "sync_checks": store_sync_checks(args, dev), "runs": {}}
+
+    def counter(name):
+        """A counter's value summed over its label sets."""
+        return sum(v for k, v in metrics.snapshot().items()
+                   if k == name or k.startswith(name + "{"))
+
+    def run(name, record=False, patch_timer=None):
+        before = {k: counter(k) for k in (metrics.HBM_CACHE_HITS,
+                                          metrics.HBM_CACHE_MISSES,
+                                          metrics.CACHE_DELTA_SERVES)}
+        put0, patches0 = runtime.put_bytes(), cache.patches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with (patch_timer or contextlib.nullcontext()), \
+                (segsum_bench.record_calls() if record
+                 else contextlib.nullcontext()) as rec:
+            segsum.launches = 0
+            res = run_q1_store(device=dev, storage=storage)
+            launches = segsum.launches
+        if rec is not None:
+            recorded[f"store-{name}"] = recorded_path(f"store {name}", rec,
+                                                      launches)
+        truth = mirror.truth()
+        st = res.stats
+        if res.rows != truth:
+            raise AssertionError(f"store {name}: rows differ from the numpy "
+                                 f"truth:\n{res.rows}\n{truth}")
+        if launches <= 0:
+            raise AssertionError(f"store {name}: segment-sum kernel never "
+                                 "launched")
+        if st.fallbacks:
+            raise AssertionError(f"store {name}: fallbacks "
+                                 f"{st.fallback_reasons}")
+        if st.mem_left:
+            raise AssertionError(f"store {name}: the statement's ledger "
+                                 f"still holds {st.mem_left} bytes")
+        got = {"seconds": res.seconds, "rows_per_s": n / res.seconds,
+               "hbm_hits": counter(metrics.HBM_CACHE_HITS) -
+               before[metrics.HBM_CACHE_HITS],
+               "hbm_misses": counter(metrics.HBM_CACHE_MISSES) -
+               before[metrics.HBM_CACHE_MISSES],
+               "hbm_patches": cache.patches - patches0,
+               "delta_serves": counter(metrics.CACHE_DELTA_SERVES) -
+               before[metrics.CACHE_DELTA_SERVES],
+               "h2d_bytes": runtime.put_bytes() - put0,
+               "segsum_launches": launches, "ledger_peak": st.mem_peak,
+               "ledger_left": st.mem_left,
+               "hbm_blocks": len(cache), "hbm_resident": node.device,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+               "host_max_rss_kb": resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss}
+        out["runs"][name] = got
+        return got
+
+    cold = run("cold", record=True)
+    if cold["hbm_hits"] or len(cache):
+        raise AssertionError(f"store cold: HBM blocks at a cold run {cold}")
+    warm = run("warm", record=True)
+    if warm["hbm_misses"] != regions or len(cache) != regions or \
+            warm["hbm_hits"]:
+        raise AssertionError(f"store warm: expected {regions} fills, {warm}")
+    hot = run("hot")
+    if hot["hbm_hits"] != regions or hot["hbm_misses"] or \
+            hot["h2d_bytes"]:
+        raise AssertionError(f"store hot: expected {regions} hits and no "
+                             f"host->device byte, {hot}")
+    if node.device != cache.resident_bytes() or not node.device:
+        raise AssertionError(f"store: hbm-cache node {node.device} B, "
+                             f"cache {cache.resident_bytes()} B")
+    # the first batch: all in the last region (its handles run past n)
+    lo = (regions - 1) * (n // regions)
+    b1 = tpch.write_batch(d, np.arange(lo, n), args.seed + 1, 4000, 1000,
+                          1000, next_handle=n, new_flag="X")
+    t0 = time.perf_counter()
+    tpch.commit_batch(storage, b1)
+    out["batch1_s"] = time.perf_counter() - t0
+    mirror.apply(b1)
+    if storage.delta_store.rows_current() != 6000:
+        raise AssertionError(f"store: {storage.delta_store.rows_current()} "
+                             "journaled rows after the first batch")
+    timer = TimedPatches()
+    patched = run("patched", record=True, patch_timer=timer)
+    out["patch"] = timer.finish()
+    if patched["hbm_patches"] != 1 or patched["hbm_hits"] != regions or \
+            patched["hbm_misses"] or not patched["delta_serves"]:
+        raise AssertionError(f"store patched: expected one device patch "
+                             f"and {regions} hits, {patched}")
+    if len(timer.calls) != 1 or timer.calls[0]["scatter_device_ms"] is None:
+        raise AssertionError(f"store patched: patch calls {timer.calls}")
+    # the patch's device program clones every lane of the block and
+    # writes the delta rows: bytes bound = each resident lane byte read
+    # once and written once
+    out["patch_bound_ms"] = 2 * timer.calls[0]["lane_bytes"] / \
+        segsum_bench.H100_BYTES_PER_S * 1e3
+    live = np.setdiff1d(np.arange(lo, n), b1.deletes)
+    merged0 = counter(metrics.DELTA_MERGES)
+    b2 = tpch.write_batch(d, live, args.seed + 2, 4000)
+    t0 = time.perf_counter()
+    tpch.commit_batch(storage, b2)
+    storage.delta_store.join()
+    out["batch2_s"] = time.perf_counter() - t0
+    mirror.apply(b2)
+    out["merges"] = counter(metrics.DELTA_MERGES) - merged0
+    if out["merges"] != 1:
+        raise AssertionError(f"store: {out['merges']} delta merges after "
+                             "the second batch")
+    out["journal_rows_after_merge"] = storage.delta_store.rows_current()
+    run("merged")
+    out["rows"] = [[str(x) for x in r] for r in mirror.truth()]
+    if args.profile:
+        # one thread, so cProfile sees the regions' work; the regions the
+        # merge re-colded fill their blocks first, so the profiled hot
+        # run hits in every region; then a cold run from empty caches
+        with config.session_overlay({"tidb_tpu_cop_concurrency": 1}):
+            run_q1_store(device=dev, storage=storage)
+            out["profile_hot"] = profile_run(
+                lambda: run_q1_store(device=dev, storage=storage))
+            storage.chunk_cache.clear()
+            cache.shed()
+            out["profile_cold"] = profile_run(
+                lambda: run_q1_store(device=dev, storage=storage))
+    out["hbm_resident_before_shed"] = node.device
+    storage.close()
+    out["hbm_resident_after_shed"] = node.device
+    out["delta_staged_after_close"] = delta.tracker().host
+    if node.device or delta.tracker().host:
+        raise AssertionError(f"store: ledger nodes hold {node.device} B "
+                             f"(hbm-cache), {delta.tracker().host} B "
+                             "(delta-store) after shed")
+    return out
+
+
 def profile_run(fn) -> dict:
     """One more run of `fn` (a run_q* call) under torch.profiler and
     cProfile: device time by kernel, host time by torch op and by Python
@@ -703,6 +1020,8 @@ def main() -> int:
         emit(run_query_phase(name, args, dev, d, tables, recorded))
     emit(analyze_phase(args, dev, tables))
     emit(q18_phase(args, dev, d, tables, recorded))
+    del d, tables
+    emit(store_phase(args, dev, recorded))
 
     # the kernel at every shape the three paths gave it, on their own
     # recorded inputs: held against the plain version, then timed

@@ -395,3 +395,42 @@ def test_quota_stages_and_drains_the_reference_pairs(join_session,
     assert pspill == jspill == stats.spilled_partitions > 0
     assert stats.staged_probe_rows == stats.drained_probe_rows > 0
     assert pleft == jleft == 0
+
+
+def test_partition_spans_on_the_statement_trace():
+    """Each hybrid build partition's upload and each partition of the
+    partitioned agg is one `join.partition` span under the statement's
+    trace, as in the reference."""
+    from tidb_tpu_torch import trace
+    bk, _pk, nb, _n = _skewed()
+    pb = phy.HybridJoinBuild(pj.JoinKernel(1, device="cpu"), bk, nb,
+                             parts=4, threshold=0)
+    root = trace.begin("statement")
+    try:
+        pb.ensure(1)
+        pb.ensure(1)                          # resident: no second span
+    finally:
+        trace.end(root)
+        pb.close()
+    (up,) = root.children
+    assert (up.name, up.tags["partition"], up.tags["upload"]) == \
+        ("join.partition", 1, 1)
+    rng = np.random.default_rng(5)
+    n = 5000
+    ch = Chunk([Column(INT, rng.integers(0, 3000, n).astype(np.int64),
+                       np.ones(n, bool)),
+                Column(INT, rng.integers(0, 100, n).astype(np.int64),
+                       np.ones(n, bool))])
+    pch = port_chunk(ch)
+    aggs = [AggDesc(AggFunc.SUM, col(1, INT))]
+    root = trace.begin("statement")
+    try:
+        phy.partitioned_agg(pch, None, [convert.expr_from(col(0, INT))],
+                            [convert.agg_from(a) for a in aggs], parts=4,
+                            device="cpu")
+    finally:
+        trace.end(root)
+    spans = [c for c in root.children if c.name == "join.partition"]
+    assert len(spans) == 4 and all(c.tags["rows"] for c in spans)
+    assert sum(c.tags["rows"] for c in spans) == n
+    assert trace.validate(root) == []

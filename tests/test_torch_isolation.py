@@ -1,6 +1,7 @@
 """The port stands alone: tidb_tpu_torch imports neither jax nor
-tidb_tpu (by AST scan and by sys.modules after CPU runs of Q1 and Q18's
-inner block in a fresh process), and its entry points run on CUDA unless
+tidb_tpu (by AST scan of every module, the storage path's included, and
+by sys.modules after CPU runs of Q1, Q18's inner block and Q1 through
+the store in a fresh process), and its entry points run on CUDA unless
 told otherwise, raising where there is none instead of quietly running
 on the CPU."""
 
@@ -60,6 +61,12 @@ assert res.rows == tpch.q1_truth(d), res.rows
 from tidb_tpu_torch.executor.agg import run_q18_inner
 q18 = run_q18_inner(device="cpu", sf=0.002, seed=7, superchunk_rows=4096)
 assert [r[0] for r in q18.rows] == tpch.q18_inner_truth(d).tolist()
+from tidb_tpu_torch.executor.agg import run_q1_store
+from tidb_tpu_torch import config
+config.set_var("tidb_tpu_device_min_rows", 1)
+st = run_q1_store(device="cpu", sf=0.002, seed=7)
+assert st.rows == tpch.q1_truth(d), st.rows
+assert run_q1_store(device="cpu", storage=st.storage).rows == st.rows
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))))
 """
@@ -86,8 +93,11 @@ def test_entry_points_default_to_cuda():
     from tidb_tpu_torch.benchmarks import tpch
     from tidb_tpu_torch.chunk import Chunk
     from tidb_tpu_torch.executor import ExecContext
-    from tidb_tpu_torch.executor.agg import (run_agg, run_q1, run_q3,
-                                             run_q5, run_q18_inner)
+    from tidb_tpu_torch.executor.agg import (run_agg, run_q1, run_q1_store,
+                                             run_q3, run_q5, run_q18_inner)
+    from tidb_tpu_torch.store import copr
+    from tidb_tpu_torch.store.device_cache import DeviceCache
+    from tidb_tpu_torch.store.storage import new_mock_storage
     from tidb_tpu_torch.ops import (fragment, hashagg, hybrid, join, runtime,
                                     stats, streamagg)
     flt, group_exprs, aggs = tpch.q1_plan()
@@ -114,6 +124,11 @@ def test_entry_points_default_to_cuda():
         lambda: hashagg.ScalarAggKernel(flt, aggs),
         lambda: runtime.device_put_chunk(ch),
         lambda: runtime.device_put_chunk(Chunk(ch.columns), device="cuda"),
+        lambda: run_q1_store(sf=0.002),
+        lambda: new_mock_storage(),
+        lambda: DeviceCache(),
+        lambda: copr.exec_cop_plan(tpch.q1_cop_plan(
+            tpch.table_infos()["lineitem"]), ch),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

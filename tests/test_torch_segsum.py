@@ -302,3 +302,56 @@ def test_ptxas_report_parses_each_variant():
     assert segsum.ptxas_report(log) == [
         {"dtype": "int64", "mask": 2, "spill_stores": 8, "spill_loads": 4,
          "registers": 40}]
+
+
+class _FakeEvent:
+    def __init__(self, enable_timing=False):
+        self.stamp = None
+
+    def record(self):
+        self.stamp = len(_FakeEvent.clock)
+        _FakeEvent.clock.append(self)
+
+    def elapsed_time(self, end):
+        return 0.25 * (end.stamp - self.stamp)
+
+
+class _FakeAverage:
+    def __init__(self, key, device_us, count):
+        self.key, self.count = key, count
+        self.device_type = "DeviceType.CUDA" if device_us else "DeviceType.CPU"
+        self.self_device_time_total = device_us
+
+
+@pytest.mark.parametrize("device_us", [0.0, 800.0])
+def test_device_ms_falls_back_to_cuda_events(monkeypatch, device_us):
+    """device_ms reads the profiler's device records; where a window holds
+    none (CUPTI delivered no kernel record), it profiles twice more and
+    then times each call between two CUDA events instead of failing."""
+    import contextlib
+    import torch.profiler
+    from tidb_tpu_torch.benchmarks import segsum_bench
+    windows = []
+
+    @contextlib.contextmanager
+    def profile(activities):
+        prof = type("Prof", (), {})()
+        prof.key_averages = lambda: [
+            _FakeAverage("aten::index_add_", 0.0, 40),
+            _FakeAverage("indexFuncLargeIndex", device_us, 40)]
+        windows.append(prof)
+        yield prof
+    _FakeEvent.clock = []
+    monkeypatch.setattr(torch.profiler, "profile", profile)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    ms = segsum_bench.device_ms(lambda x: calls.append(x), [(1,), (2,)],
+                                iters=40, warmup=4)
+    if device_us:
+        assert ms == pytest.approx(0.02) and len(windows) == 1
+        assert len(calls) == 4 + 40
+    else:
+        # each call sits between its own pair of events: 0.25 ms apart
+        assert ms == pytest.approx(0.25) and len(windows) == 3
+        assert len(calls) == 4 + 3 * 40 + 40

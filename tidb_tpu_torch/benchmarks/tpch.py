@@ -20,6 +20,7 @@ overflow, in both packages.
 from __future__ import annotations
 
 import datetime
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -28,7 +29,9 @@ from tidb_tpu_torch.sqltypes import (FieldType, TypeCode, date_to_micros,
                                      new_datetime_field, new_decimal_field,
                                      new_int_field, parse_datetime)
 
-__all__ = ["ScaledTpch", "Q1", "Q3", "Q5", "TABLE_COLUMNS",
+__all__ = ["ScaledTpch", "Q1", "Q3", "Q5", "TABLE_COLUMNS", "TABLE_IDS",
+           "table_infos", "load_store", "q1_cop_plan", "q1_truth_of",
+           "WriteBatch", "write_batch", "commit_batch", "Q1Mirror",
            "LINEITEM_COLUMNS", "QUERY_TABLES", "PLANS", "table_chunks",
            "lineitem_chunks", "q1_plan", "q1_truth", "q3_plan", "q3_finish",
            "q3_truth", "q3_groups_truth", "q5_plan", "q5_finish",
@@ -296,15 +299,27 @@ def q1_truth(d: ScaledTpch) -> list[tuple]:
     sum_charge, avg_qty, avg_price, avg_disc, count_order), decimals as
     scaled ints (sums at frac 2, 2, 4, 6; averages at frac 6, rounded
     half up)."""
+    return q1_truth_of(d.l_returnflag, d.l_linestatus, d.l_quantity * 100,
+                       d.l_extendedprice, d.l_discount, d.l_tax,
+                       _days_us(d.l_shipdate))
+
+
+def q1_truth_of(flag, status, qty, price, disc, tax, shipdate,
+                flag_names=FLAGS, status_names=STATUSES) -> list[tuple]:
+    """q1_truth over lineitem lanes as the store holds them: `flag` and
+    `status` index `flag_names` / `status_names`, `qty` .. `tax` are
+    scaled decimals (frac 2), `shipdate` epoch micros. Groups come out
+    in (returnflag, linestatus) order, as Q1's ORDER BY gives them."""
     cutoff = date_to_micros(datetime.date(1998, 12, 1) -
                             datetime.timedelta(days=90))
-    live = _days_us(d.l_shipdate) <= cutoff
-    gid = d.l_returnflag.astype(np.int64) * len(STATUSES) + d.l_linestatus
-    qty = d.l_quantity.astype(np.int64) * 100
-    price = d.l_extendedprice.astype(np.int64)
-    disc = d.l_discount.astype(np.int64)
+    live = np.asarray(shipdate) <= cutoff
+    flag = np.asarray(flag, dtype=np.int64)
+    status = np.asarray(status, dtype=np.int64)
+    qty = np.asarray(qty, dtype=np.int64)
+    price = np.asarray(price, dtype=np.int64)
+    disc = np.asarray(disc, dtype=np.int64)
     disc_price = price * (100 - disc)
-    charge = disc_price * (100 + d.l_tax.astype(np.int64))
+    charge = disc_price * (100 + np.asarray(tax, dtype=np.int64))
 
     def avg(total: int, count: int) -> int:    # frac 2 -> 6, half up
         q, r = divmod(abs(total) * 10 ** 4, count)
@@ -312,17 +327,19 @@ def q1_truth(d: ScaledTpch) -> list[tuple]:
         return q if total >= 0 else -q
 
     rows = []
-    for f, flag in enumerate(FLAGS):
-        for s, status in enumerate(STATUSES):
-            m = live & (gid == f * len(STATUSES) + s)
+    for f in sorted(range(len(flag_names)), key=lambda i: flag_names[i]):
+        for s in sorted(range(len(status_names)),
+                        key=lambda i: status_names[i]):
+            m = live & (flag == f) & (status == s)
             count = int(np.count_nonzero(m))
             if not count:
                 continue
             sq, sp, sd, sc, sdisc = (
                 int(np.sum(a, where=m, dtype=np.int64))
                 for a in (qty, price, disc_price, charge, disc))
-            rows.append((flag, status, sq, sp, sd, sc, avg(sq, count),
-                         avg(sp, count), avg(sdisc, count), count))
+            rows.append((flag_names[f], status_names[s], sq, sp, sd, sc,
+                         avg(sq, count), avg(sp, count), avg(sdisc, count),
+                         count))
     return rows
 
 
@@ -568,3 +585,221 @@ def analyze_columns(d: ScaledTpch | None, names, device=None,
     return {name: build_column_stats(table_column(chunks, table, name),
                                      device=device)
             for name in names}
+
+
+# -- the storage path: TPC-H in the mock TiKV store ---------------------------
+
+# table ids the JAX package's DDL (benchmarks/tpch.DDL run in a fresh
+# session after CREATE DATABASE tpch) gives each table: with them and the
+# column ids below, the port's KV bytes equal the reference's
+TABLE_IDS = {"region": 3, "nation": 5, "customer": 7, "supplier": 9,
+             "orders": 11, "lineitem": 13}
+
+# what `load` ingests: the generator's arrays per DDL column
+_LOAD_ORDER = ("region", "nation", "customer", "supplier", "orders",
+               "lineitem")
+
+
+def table_infos() -> dict:
+    """{table: TableInfo} as the JAX DDL builds them (held equal to the
+    reference's by tests/test_torch_codec.py): column ids 1.. in DDL
+    order, the BIGINT PRIMARY KEY as the row handle (NOT NULL, PRI_KEY
+    flags), every other column nullable with a NULL default."""
+    from tidb_tpu_torch.schema.model import ColumnInfo, TableInfo
+    from tidb_tpu_torch.sqltypes import Flag
+    out = {}
+    for name, cols in TABLE_COLUMNS.items():
+        infos = []
+        for j, (cname, ft) in enumerate(cols):
+            if j == 0:
+                ft = ft.with_flags(int(Flag.NOT_NULL) | int(Flag.PRI_KEY))
+            infos.append(ColumnInfo(id=j + 1, name=cname, offset=j, ft=ft,
+                                    has_default=j != 0))
+        out[name] = TableInfo(id=TABLE_IDS[name], name=name, columns=infos,
+                              pk_is_handle=True, pk_col_name=cols[0][0],
+                              max_column_id=len(cols))
+    return out
+
+
+def _load_columns(d: ScaledTpch, table: str) -> dict:
+    """{column name: array} that `bulkload.bulk_load` ingests for
+    `table`: the JAX package's tpch.load arrays (strings as object
+    arrays, decimals scaled, dates epoch micros)."""
+    lanes, _n = _table_lanes(d, table)
+    out = {}
+    for (name, _ft), lane in zip(TABLE_COLUMNS[table], lanes):
+        if isinstance(lane, tuple):
+            idx, values = lane
+            lane = np.array(values, dtype=object)[np.asarray(idx)]
+        out[name] = np.asarray(lane)
+    return out
+
+
+def load_store(storage, d: ScaledTpch, regions_per_table: int = 4,
+               infos: dict | None = None) -> int:
+    """Bulk ingest of the six tables into `storage` (the port of the JAX
+    package's tpch.load, without the DDL: the TableInfos come from
+    `table_infos`), then the region pre-split of lineitem and orders.
+    No auto-id rebase: every table's primary key is its handle, and the
+    port has no meta layer. -> total rows loaded."""
+    from tidb_tpu_torch.table import Table, bulkload
+    infos = infos or table_infos()
+    total = 0
+    for name in _LOAD_ORDER:
+        total += bulkload.bulk_load(storage, Table(infos[name], storage),
+                                    _load_columns(d, name),
+                                    rebase_autoid=False)
+    cluster = storage.cluster
+    for name in ("lineitem", "orders"):
+        cluster.split_table(infos[name].id, regions_per_table,
+                            max_handle=d.counts[name])
+    return total
+
+
+def q1_cop_plan(info):
+    """The CopPlan the JAX planner pushes for Q1 over lineitem's
+    TableInfo `info`: every column scanned, the q1_plan filter, group-by
+    and aggregates over them."""
+    from tidb_tpu_torch.plan.physical import CopPlan
+    flt, group_exprs, aggs = q1_plan()
+    return CopPlan(table=info, cols=list(info.columns), filter=flt,
+                   group_exprs=group_exprs, aggs=aggs)
+
+
+@dataclass
+class WriteBatch:
+    """One OLTP write batch on lineitem: `updates` (handles) get new
+    `upd_qty` (scaled, frac 2) and `upd_flag` (l_returnflag strings),
+    `deletes` (handles) go, `inserts` ({column: array}, l_id the handle)
+    come in."""
+
+    updates: np.ndarray
+    upd_qty: np.ndarray
+    upd_flag: np.ndarray
+    deletes: np.ndarray
+    inserts: dict
+
+
+def write_batch(d: ScaledTpch, candidates: np.ndarray, seed: int,
+                updates: int, inserts: int = 0, deletes: int = 0,
+                next_handle: int = 0, new_flag: str | None = None
+                ) -> WriteBatch:
+    """A seeded batch over the live lineitem handles `candidates`:
+    distinct handles to update and delete, inserts at handles from
+    `next_handle` with the generator's value ranges (their orders drawn
+    from d's), the first insert's l_returnflag `new_flag` where given."""
+    rng = np.random.default_rng(seed)
+    picks = rng.choice(candidates, updates + deletes, replace=False)
+    flags = np.array(FLAGS, dtype=object)
+    ins = {}
+    if inserts:
+        ok = rng.integers(0, d.counts["orders"], inserts)
+        ship = d.o_orderdate[ok] + rng.integers(1, 122, inserts)
+        ins = {"l_id": next_handle + np.arange(inserts, dtype=np.int64),
+               "l_orderkey": ok,
+               "l_suppkey": rng.integers(0, d.counts["supplier"], inserts),
+               "l_quantity": rng.integers(1, 51, inserts) * 100,
+               "l_extendedprice": rng.integers(90000, 10500000, inserts),
+               "l_discount": rng.integers(0, 11, inserts),
+               "l_tax": rng.integers(0, 9, inserts),
+               "l_returnflag": flags[rng.integers(0, 3, inserts)],
+               "l_linestatus": np.array(STATUSES, dtype=object)[
+                   rng.integers(0, 2, inserts)],
+               "l_shipdate": _days_us(ship),
+               "l_commitdate": _days_us(d.o_orderdate[ok] +
+                                        rng.integers(30, 92, inserts)),
+               "l_receiptdate": _days_us(ship +
+                                         rng.integers(1, 31, inserts))}
+        if new_flag is not None:
+            ins["l_returnflag"][0] = new_flag
+    return WriteBatch(updates=np.sort(picks[:updates]),
+                      upd_qty=rng.integers(1, 51, updates) * 100,
+                      upd_flag=flags[rng.integers(0, 3, updates)],
+                      deletes=np.sort(picks[updates:]), inserts=ins)
+
+
+def commit_batch(storage, b: WriteBatch, info=None) -> int:
+    """`b` as one transaction: storage.begin(), Table.update_record /
+    remove_record over each row's stored datums, Table.add_record per
+    insert, commit. -> rows written."""
+    from tidb_tpu_torch import tablecodec
+    from tidb_tpu_torch.table import Table
+    info = info or table_infos()["lineitem"]
+    table = Table(info, storage)
+    txn = storage.begin()
+    try:
+        def old(h):
+            return tablecodec.decode_row(
+                txn.get(tablecodec.record_key(info.id, int(h))))
+        for h, q, f in zip(b.updates, b.upd_qty, b.upd_flag):
+            table.update_record(txn, int(h), old(h),
+                                {"l_quantity": (2, int(q)),
+                                 "l_returnflag": f})
+        for h in b.deletes:
+            table.remove_record(txn, int(h), old(h))
+        names = list(b.inserts)
+        for i in range(len(b.inserts.get("l_id", ()))):
+            vals = {}
+            for name in names:
+                v = b.inserts[name][i]
+                ft = info.col_by_name(name).ft
+                vals[name] = (2, int(v)) if ft.frac == 2 else \
+                    (v if isinstance(v, str) else int(v))
+            table.add_record(txn, vals)
+        txn.commit()
+    except Exception:
+        txn.rollback()
+        raise
+    return len(b.updates) + len(b.deletes) + len(b.inserts.get("l_id", ()))
+
+
+class Q1Mirror:
+    """Q1's lanes of lineitem as numpy arrays, kept in step with the
+    write batches committed to the store, for an exact truth after each
+    (q1_truth_of over the live rows)."""
+
+    def __init__(self, d: ScaledTpch):
+        self.flag_names = list(FLAGS)
+        self.cols = {"flag": d.l_returnflag.astype(np.int64),
+                     "status": d.l_linestatus.astype(np.int64),
+                     "qty": d.l_quantity * 100,
+                     "price": d.l_extendedprice.astype(np.int64),
+                     "disc": d.l_discount.astype(np.int64),
+                     "tax": d.l_tax.astype(np.int64),
+                     "ship": _days_us(d.l_shipdate)}
+        self.alive = np.ones(d.counts["lineitem"], dtype=bool)
+
+    def _codes(self, names) -> np.ndarray:
+        for f in names:
+            if f not in self.flag_names:
+                self.flag_names.append(f)
+        return np.array([self.flag_names.index(f) for f in names],
+                        dtype=np.int64)
+
+    def apply(self, b: WriteBatch) -> None:
+        c = self.cols
+        c["qty"][b.updates] = b.upd_qty
+        c["flag"][b.updates] = self._codes(b.upd_flag)
+        self.alive[b.deletes] = False
+        if b.inserts:
+            ins = b.inserts
+            n = len(ins["l_id"])
+            assert ins["l_id"][0] == len(self.alive), "inserts append"
+            new = {"flag": self._codes(ins["l_returnflag"]),
+                   "status": np.array([STATUSES.index(x)
+                                       for x in ins["l_linestatus"]]),
+                   "qty": ins["l_quantity"],
+                   "price": ins["l_extendedprice"],
+                   "disc": ins["l_discount"], "tax": ins["l_tax"],
+                   "ship": ins["l_shipdate"]}
+            for k in c:
+                c[k] = np.concatenate([c[k], np.asarray(new[k],
+                                                        dtype=np.int64)])
+            self.alive = np.concatenate([self.alive,
+                                         np.ones(n, dtype=bool)])
+
+    def truth(self) -> list[tuple]:
+        c, m = self.cols, self.alive
+        return q1_truth_of(c["flag"][m], c["status"][m], c["qty"][m],
+                           c["price"][m], c["disc"][m], c["tax"][m],
+                           c["ship"][m], flag_names=self.flag_names)

@@ -1,10 +1,11 @@
-"""The sysvars the port's kernels read.
+"""The sysvars the port's kernels and its storage path read.
 
 A subset of the JAX package's registry, with the same names, types and
 defaults, so one setting means the same thing in both packages. Values
 come from the defaults, then from the environment (TIDB_TPU_SUPERCHUNK_ROWS
 and so on), then from `set_var`; `session_overlay` shadows them on one
-thread for a statement's duration.
+thread for a statement's duration, and `current_overlay` hands a
+thread's overlay to the coprocessor's pool workers.
 """
 
 from __future__ import annotations
@@ -12,7 +13,12 @@ from __future__ import annotations
 import os
 import threading
 
-__all__ = ["get_var", "set_var", "session_overlay", "device_min_rows",
+__all__ = ["get_var", "set_var", "session_overlay", "current_overlay",
+           "chunk_cache_enabled",
+           "cop_concurrency", "copr_stream_enabled",
+           "copr_stream_frame_bytes", "copr_stream_credit",
+           "device_cache_bytes", "delta_store_enabled", "delta_merge_rows",
+           "delta_merge_ratio_pct", "delta_retain_ms", "device_min_rows",
            "superchunk_rows", "pipeline_depth", "fused_scan_enabled",
            "encoded_exec_enabled", "fuse_fragments_enabled",
            "direct_agg_slots", "join_partitions", "skew_threshold",
@@ -26,6 +32,29 @@ class UnknownVariableError(Exception):
 _BOOL, _INT = "bool", "int"
 
 _DEFS: dict[str, tuple[str, int]] = {
+    # columnar region-chunk cache on the storage side (store/chunk_cache)
+    "tidb_tpu_chunk_cache": (_BOOL, 1),
+    # coprocessor fan-out worker count
+    "tidb_tpu_cop_concurrency": (_INT, 10),
+    # streaming coprocessor (store/stream.py): framed partial responses
+    # per key range; 0 = materialized per-region response lists
+    "tidb_tpu_copr_stream": (_BOOL, 1),
+    # a streamed frame carries at most this many raw scanned bytes
+    "tidb_tpu_copr_stream_frame_bytes": (_INT, 4 << 20),
+    # frames in flight past the consumer before a producer blocks
+    "tidb_tpu_copr_stream_credit": (_INT, 4),
+    # HBM-resident region-block cache budget in bytes
+    # (store/device_cache.py); 0 disables it
+    "tidb_tpu_device_cache_bytes": (_INT, 2 << 30),
+    # MVCC delta store (store/delta.py): row commits journal per table
+    # and both cache tiers serve base + delta
+    "tidb_tpu_delta_store": (_BOOL, 1),
+    # staged delta rows per table that trigger a merge
+    "tidb_tpu_delta_merge_rows": (_INT, 8192),
+    # merge when staged rows pass this percent of the cached base rows
+    "tidb_tpu_delta_merge_ratio_pct": (_INT, 25),
+    # journal kept behind now by a merge, wall-clock ms (0 = none)
+    "tidb_tpu_delta_retain_ms": (_INT, 0),
     # min chunk rows before an executor pays a device dispatch
     "tidb_tpu_device_min_rows": (_INT, 2048),
     # rows per coalesced device batch (ops/runtime.superchunk_batches); a
@@ -111,6 +140,12 @@ class session_overlay:
         return False
 
 
+def current_overlay() -> dict:
+    """This thread's effective overlay, for re-installing in a worker
+    thread with session_overlay(...)."""
+    return dict(getattr(_tls, "overlay", None) or {})
+
+
 def get_var(name: str) -> int:
     key = name.lower()
     if key not in _DEFS:
@@ -168,3 +203,44 @@ def sort_spill_rows() -> int:
 
 def mem_quota_query() -> int:
     return max(0, _read("tidb_tpu_mem_quota_query"))
+
+
+def chunk_cache_enabled() -> bool:
+    return bool(_read("tidb_tpu_chunk_cache"))
+
+
+def cop_concurrency() -> int:
+    return _read("tidb_tpu_cop_concurrency")
+
+
+def copr_stream_enabled() -> bool:
+    return bool(_read("tidb_tpu_copr_stream"))
+
+
+def copr_stream_frame_bytes() -> int:
+    return min(max(1, _read("tidb_tpu_copr_stream_frame_bytes")), 1 << 30)
+
+
+def copr_stream_credit() -> int:
+    return max(1, _read("tidb_tpu_copr_stream_credit"))
+
+
+def device_cache_bytes() -> int:
+    return max(0, _read("tidb_tpu_device_cache_bytes"))
+
+
+def delta_store_enabled() -> bool:
+    return bool(_read("tidb_tpu_delta_store"))
+
+
+def delta_merge_rows() -> int:
+    return max(1, _read("tidb_tpu_delta_merge_rows"))
+
+
+def delta_merge_ratio_pct() -> int:
+    return max(0, _read("tidb_tpu_delta_merge_ratio_pct"))
+
+
+def delta_retain_ms() -> int:
+    return max(0, _read("tidb_tpu_delta_retain_ms"))
+

@@ -5,7 +5,9 @@ The port never imports the reference's types. A caller that holds both
 builds the port's from them: `chunk_from_arrays` takes a chunk's columns
 as (type code, flen, frac, collation, data, valid) tuples, and
 `expr_from` / `agg_from` rebuild an expression tree or an aggregate
-descriptor by reading its attributes, never its class.
+descriptor by reading its attributes, never its class; `table_info_from`
+carries a TableInfo through its JSON form and `cop_plan_from` a pushed
+CopPlan with its expressions.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from tidb_tpu_torch.expression import (AggDesc, AggFunc, ColumnRef, Constant,
                                        Op, ScalarFunc)
 from tidb_tpu_torch.sqltypes import FieldType, TypeCode
 
-__all__ = ["field_type", "chunk_from_arrays", "expr_from", "agg_from"]
+__all__ = ["field_type", "chunk_from_arrays", "expr_from", "agg_from",
+           "table_info_from", "cop_plan_from"]
 
 
 def field_type(tp, flen: int = -1, frac: int = -1,
@@ -67,3 +70,31 @@ def expr_from(e):
 def agg_from(a) -> AggDesc:
     return AggDesc(AggFunc(a.fn.value), expr_from(a.arg), a.distinct,
                    a.name, a.sep)
+
+
+def table_info_from(info):
+    """A TableInfo of either package -> the port's, through to_json (the
+    form both packages store in their meta plane)."""
+    from tidb_tpu_torch.schema.model import TableInfo
+    return TableInfo.from_json(info.to_json())
+
+
+def cop_plan_from(cop):
+    """A CopPlan of either package -> the port's, with the same table,
+    columns, ranges and expression trees."""
+    from tidb_tpu_torch.kv import KVRange
+    from tidb_tpu_torch.plan.physical import CopPlan
+    from tidb_tpu_torch.schema.model import ColumnInfo, IndexInfo
+    ranges = None if cop.ranges is None else \
+        [KVRange(r.start, r.end) for r in cop.ranges]
+    return CopPlan(
+        table=table_info_from(cop.table),
+        cols=[ColumnInfo.from_json(c.to_json()) for c in cop.cols],
+        handle_col=cop.handle_col, ranges=ranges,
+        filter=expr_from(cop.filter), host_filter=expr_from(cop.host_filter),
+        group_exprs=None if cop.group_exprs is None else
+        [expr_from(g) for g in cop.group_exprs],
+        aggs=None if cop.aggs is None else [agg_from(a) for a in cop.aggs],
+        limit=cop.limit, desc=cop.desc,
+        index=None if cop.index is None else
+        IndexInfo.from_json(cop.index.to_json()))

@@ -2,7 +2,9 @@
 
 Operators take a context (`ExecContext`) in `chunks(ctx)`, as the JAX
 package's executors do: here it carries the device the run's kernels go
-to, the table chunks the scans read, and the run's counters (ExecStats).
+to, the table chunks the scans read (or the storage and the snapshot ts
+the table readers of executor/reader.py read through), and the run's
+counters (ExecStats).
 """
 
 from __future__ import annotations
@@ -55,8 +57,11 @@ class ExecStats:
 @dataclass
 class ExecContext:
     """What one run's operators share: the device, the scans' tables
-    (table name -> list of Chunks) and the counters."""
+    (table name -> list of Chunks), the counters, and for readers over
+    the store the storage and the statement's snapshot ts."""
 
     device: object
     tables: dict = field(default_factory=dict)
     stats: ExecStats = field(default_factory=ExecStats)
+    storage: object = None
+    read_ts: int = 0

@@ -24,6 +24,11 @@ segment-reduced on the device by ops/streamagg.SegmentAggKernel, with no
 capacity limit. `agg_algorithm` is the JAX planner's NDV rule between the
 two, over a column's ANALYZE statistics.
 
+`run_q1_store` runs Q1 as the JAX package serves it from its store:
+lineitem in the mock TiKV store, the TableReader's cop request fanned
+out over the regions (store/copr.py, store/stream.py), per-region
+partials from the chunk cache and the HBM block cache, merged here.
+
 `run_q3` / `run_q5` run TPC-H Q3 and Q5 through HashAgg, with their host
 tails (TopN, Sort) as plain host code; `run_q18_inner` runs Q18's inner
 block (ANALYZE, the NDV rule, StreamAgg, the HAVING). Each opens a
@@ -56,9 +61,10 @@ from tidb_tpu_torch.ops.join import host_match_pairs
 from tidb_tpu_torch.ops.streamagg import segment_kernel_for
 from tidb_tpu_torch.sqltypes import np_dtype_for, object_fill
 
-__all__ = ["Q1Result", "QueryResult", "HashAgg", "StreamAgg",
-           "STREAM_AGG_NDV", "agg_algorithm", "superchunk_partials",
-           "run_agg", "run_q1", "run_q3", "run_q5", "run_q18_inner"]
+__all__ = ["Q1Result", "QueryResult", "StoreResult", "HashAgg",
+           "StreamAgg", "STREAM_AGG_NDV", "agg_algorithm",
+           "superchunk_partials", "run_agg", "run_q1", "run_q1_store",
+           "run_q3", "run_q5", "run_q18_inner"]
 
 
 def _host_agg(chunk, filter_expr, group_exprs, aggs):
@@ -574,6 +580,59 @@ def run_q1(sf: float = 10.0, seed: int = 42, device=None, chunks=None,
     seconds = time.perf_counter() - t0
     rows = [tuple(key) + tuple(vals) for key, vals in results]
     return Q1Result(rows=rows, stats=stats, seconds=seconds, chunks=chunks)
+
+
+@dataclass
+class StoreResult:
+    rows: list          # Q1's rows, as run_q1 gives them
+    stats: ExecStats
+    seconds: float      # host clock, request sent to rows merged
+    storage: object = field(repr=False, default=None)
+    partials: list = field(repr=False, default_factory=list)
+
+
+def run_q1_store(sf: float = 1.0, seed: int = 42, device=None,
+                 storage=None) -> StoreResult:
+    """TPC-H Q1 served from the mock TiKV store on `device` (CUDA unless
+    the caller asks for another): a TableReader's cop request over
+    lineitem's regions at a fresh snapshot, each region's partial
+    aggregate from the coprocessor (streamed by default, cached on the
+    host and on the device once warm, patched under writes), merged with
+    HashAggregator as run_q1 merges its superchunks. Without `storage`
+    a store is made on `device` and ScaledTpch(sf, seed) bulk-loaded
+    into it (lineitem and orders in 4 regions each); pass the `storage`
+    of an earlier result to run again over the same store. The run is
+    one statement: a memtrack root and a runtime-stats collector."""
+    from tidb_tpu_torch import runtime_stats
+    from tidb_tpu_torch.benchmarks import tpch
+    from tidb_tpu_torch.executor.reader import TableReader
+    from tidb_tpu_torch.store.storage import new_mock_storage
+    if storage is None:
+        storage = new_mock_storage(device=device)
+        tpch.load_store(storage, tpch.ScaledTpch(sf, seed))
+    elif device is not None and \
+            runtime.resolve_device(device) != storage.device:
+        raise ValueError(f"the storage runs on {storage.device}, "
+                         f"not {device}")
+    cop = tpch.q1_cop_plan(tpch.table_infos()["lineitem"])
+    ctx = ExecContext(storage.device, storage=storage,
+                      read_ts=storage.current_ts())
+    coll = runtime_stats.StatsCollector()
+    agg = HashAggregator(cop.aggs, cop.group_exprs)
+    partials = []
+    t0 = time.perf_counter()
+    with _statement(ctx.stats), runtime_stats.collecting(coll):
+        for gr in TableReader(cop).partials(ctx):
+            partials.append(gr)
+            agg.update(gr)
+    rows = [tuple(key) + tuple(vals) for key, vals in agg.results()]
+    seconds = time.perf_counter() - t0
+    st = coll.get(cop)
+    if st is not None:
+        for reason, n in st.fallback_reasons.items():
+            ctx.stats.fallback_reasons[reason] = n
+    return StoreResult(rows=rows, stats=ctx.stats, seconds=seconds,
+                       storage=storage, partials=partials)
 
 
 @dataclass

@@ -28,7 +28,7 @@ operators run when a caller opens no statement.
 
 Left out of the port: `MemTracker.cancel` and `link` (the dispatch
 watchdog and the coprocessor's alias plans, which the port does not
-have yet) and `result_bytes` (coprocessor responses).
+have yet).
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ from tidb_tpu_torch import metrics
 __all__ = ["MemTracker", "QuotaExceededError", "SERVER", "tracking",
            "suspended", "current", "session_root", "statement_root",
            "server_node", "op_node", "consume", "release", "device_scope",
-           "track_to", "register_spill", "chunk_bytes", "device_put_bytes",
+           "track_to", "register_spill", "chunk_bytes", "result_bytes",
+           "device_put_bytes",
            "sessions_snapshot"]
 
 
@@ -429,6 +430,28 @@ def chunk_bytes(chunk) -> int:
         chunk._bytes_memo = total
     except AttributeError:
         pass        # duck-typed chunk without the memo slot
+    return total
+
+
+def result_bytes(res) -> int:
+    """Host footprint of a coprocessor response payload: a decoded
+    Chunk (chunk_bytes), or an agg partial shaped like
+    ops.hashagg.GroupResult (keys / per-agg lane arrays / counts).
+    Anything else — scalar partials are a handful of lanes — rounds to
+    its lane arrays alone."""
+    if getattr(res, "columns", None) is not None:
+        return chunk_bytes(res)
+    total = 0
+    for lanes in getattr(res, "partials", None) or []:
+        for arr in lanes:
+            nb = getattr(arr, "nbytes", None)
+            total += nb if nb is not None else 8 * len(arr)
+    counts = getattr(res, "counts", None)
+    if counts is not None:
+        total += counts.nbytes
+    for key in getattr(res, "keys", None) or []:
+        total += 8 * max(len(key), 1)
+        total += sum(len(x) for x in key if isinstance(x, (str, bytes)))
     return total
 
 

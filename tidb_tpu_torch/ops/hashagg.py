@@ -594,6 +594,25 @@ class HashAggKernel:
                              force_hash=self.force_hash,
                              direct_limit=self.direct_limit)
 
+    def scratch_nbytes(self, chunk: Chunk) -> int:
+        """Device bytes a dispatch stages BEYOND the input columns: the
+        group-table and lane scratch at the kernel's static capacity —
+        the share a fused dispatch over an HBM-cache-resident block
+        still pays (the input bytes stay on the cache's own ledger).
+        The JAX package's count."""
+        return self.capacity * 8 * (5 + 2 * len(self.aggs))
+
+    def dispatch_nbytes(self, chunk: Chunk) -> int:
+        """Device bytes one dispatch stages, sized from shapes at
+        dispatch time: the padded input columns (varlen ships as int64
+        dict codes, every lane carries bool validity) plus the scratch.
+        The JAX package's count: it ships every column, where the port
+        ships the used ones, so this bills the reference's footprint."""
+        from tidb_tpu_torch import memtrack
+        n = runtime.bucket_size(max(chunk.num_rows, 1))
+        return memtrack.device_put_bytes(chunk, n) + \
+            self.scratch_nbytes(chunk)
+
     def dispatch(self, chunk: Chunk, dev_cols=None):
         """Pad + transfer + enqueue WITHOUT a host sync: the pipeline's
         overlap point. With dev_cols (device-resident padded columns) the
@@ -652,6 +671,17 @@ class ScalarAggKernel:
         b.run()
         lanes = [[l for l, _op in assemble(b.get)] for assemble in assembles]
         return b.get(i_cnt), lanes
+
+    def scratch_nbytes(self, chunk: Chunk) -> int:
+        """See HashAggKernel.scratch_nbytes (one state row, no table)."""
+        return 16 * len(self.aggs)
+
+    def dispatch_nbytes(self, chunk: Chunk) -> int:
+        """See HashAggKernel.dispatch_nbytes (one state row, no table)."""
+        from tidb_tpu_torch import memtrack
+        n = runtime.bucket_size(max(chunk.num_rows, 1))
+        return memtrack.device_put_bytes(chunk, n) + \
+            self.scratch_nbytes(chunk)
 
     def dispatch(self, chunk: Chunk, dev_cols=None):
         cols = dev_cols

@@ -23,7 +23,8 @@ memtrack node, and registers a quota spill action that sheds the cold
 resident partitions (executor/join.py then stages probe rows for them
 and drains them partition by partition).
 
-Left out until the port has trace: the `join.partition` span.
+Each partition upload, and each partition of the aggregation below, is
+one `join.partition` trace span.
 
 Aggregation gets the same treatment via `partitioned_agg`: rows
 radix-partition by group-key hash, each partition re-runs the device
@@ -38,7 +39,7 @@ import threading
 
 import numpy as np
 
-from tidb_tpu_torch import config, memtrack, metrics
+from tidb_tpu_torch import config, memtrack, metrics, trace
 from tidb_tpu_torch.ops import runtime
 from tidb_tpu_torch.ops.hashagg import (CapacityError, CollisionError,
                                         DeviceRejectError, GroupResult,
@@ -300,7 +301,11 @@ class HybridJoinBuild:
             # which skips the active partition
             self._node.consume(device=nbytes)
         try:
-            dev = self.kernel.prepare_build(lanes, e - s)
+            # partition upload (first touch / post-spill re-upload) is
+            # a partition phase on the statement timeline
+            with trace.span("join.partition", partition=p, upload=1,
+                            rows=e - s):
+                dev = self.kernel.prepare_build(lanes, e - s)
         except BaseException:
             if self._node is not None:
                 self._node.release(device=nbytes)
@@ -563,24 +568,27 @@ def _one_partition_agg(sub, filter_expr, group_exprs, aggs, stats,
     device still cannot serve it."""
     from tidb_tpu_torch.ops.hostagg import host_hash_agg
     cap = _BASE_AGG_CAPACITY
-    while True:
-        try:
-            return kernel_for(filter_expr, group_exprs, aggs, capacity=cap,
-                              device=device)(sub)
-        except CapacityError as e:
-            nxt = escalated_capacity(getattr(e, "needed", 0))
-            if nxt is None or nxt <= cap:
-                reason = "capacity"
+    # one partition = one span: how long each radix partition held the
+    # device, and which ones fell to the host
+    with trace.span("join.partition", rows=sub.num_rows):
+        while True:
+            try:
+                return kernel_for(filter_expr, group_exprs, aggs,
+                                  capacity=cap, device=device)(sub)
+            except CapacityError as e:
+                nxt = escalated_capacity(getattr(e, "needed", 0))
+                if nxt is None or nxt <= cap:
+                    reason = "capacity"
+                    break
+                cap = nxt
+            except CollisionError:
+                reason = "collision"
                 break
-            cap = nxt
-        except CollisionError:
-            reason = "collision"
-            break
-        except (DeviceRejectError, NotImplementedError):
-            reason = "unsupported"
-            break
-    _note_fallback(stats, reason)
-    return host_hash_agg(sub, filter_expr, group_exprs, aggs)
+            except (DeviceRejectError, NotImplementedError):
+                reason = "unsupported"
+                break
+        _note_fallback(stats, reason)
+        return host_hash_agg(sub, filter_expr, group_exprs, aggs)
 
 
 def partitioned_agg(chunk, filter_expr, group_exprs, aggs, stats=None,

@@ -23,10 +23,27 @@ from tidb_tpu_torch.expression import Expression
 
 __all__ = ["bucket_size", "pad_column", "put_lanes", "device_put_chunk",
            "resolve_device", "eval_filter_host", "filter_mask_xp",
+           "note_put", "put_bytes",
            "MIN_BUCKET", "superchunk_batches",
            "pipeline_map", "FingerprintCache", "plan_fingerprint"]
 
 MIN_BUCKET = 1024
+
+# host->device bytes staged by put_lanes and the device cache's patch
+# copies, process-wide (read around a run to see what it moved)
+_put_mu = threading.Lock()
+_put_bytes = [0]
+
+
+def note_put(nbytes: int) -> None:
+    with _put_mu:
+        _put_bytes[0] += nbytes
+
+
+def put_bytes() -> int:
+    """Host->device bytes staged so far in this process."""
+    with _put_mu:
+        return _put_bytes[0]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -202,6 +219,7 @@ def put_lanes(lanes, n: int, size: int, device) -> list:
         vv[n:] = False
     buf = host.to(device, non_blocking=True) if device.type == "cuda" \
         else host
+    note_put(host.numel())
     out = []
     for i, dt in enumerate(dtypes):
         tdt = torch.int64 if dt == np.int64 else torch.float64

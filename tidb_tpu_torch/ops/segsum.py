@@ -39,8 +39,10 @@ __all__ = ["segment_sum", "segment_sum_plain", "build", "launches",
            "launch_plan", "plan_for", "DeviceLimits", "LaunchPlan", "H100"]
 
 # kernel launches by segment_sum since the last reset (a plain int: the
-# caller sets it to 0 and reads it back around the run it attributes)
+# caller sets it to 0 and reads it back around the run it attributes;
+# the coprocessor's pool threads add under _count_mu)
 launches = 0
+_count_mu = threading.Lock()
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "segsum.cu"
@@ -379,5 +381,6 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
                 out.data_ptr(), n, k, num_segments, stream, plan.window,
                 plan.tile, plan.threads, plan.grid(n), plan.smem)
         _check(lib, rc, "kernel launch")
-        launches += 1
+        with _count_mu:
+            launches += 1
     return out[:, 0] if one_d else out

@@ -1,0 +1,348 @@
+"""Statement tracing: lifecycle span trees.
+
+The port's copy of the JAX package's trace.py, the span machinery only:
+`begin`/`end` open and close a root, `span()` hangs a timed child under
+the thread's current span (a no-op, still timed, with none), `event()`
+marks a point on it, and `propagate()`/`attached()` carry the current
+span into the coprocessor's pool workers, so storage-side spans (cop
+tasks and streams, HBM fill and patch, delta fold and merge, the hybrid
+agg's partitions) hang off the reader that issued them. `tree`,
+`validate` and `phases_of` export a finished tree.
+
+Left out, for the slice that brings the session and the server: the
+sampling decision and the bounded retention ring (`tidb_tpu_trace_sample`,
+`tidb_tpu_slow_trace_ms`, the `trace-ring` ledger node), the statement
+finish that feeds perfschema, the Chrome export of a retained record,
+and the cross-process parts (`origin`, `attach_remote`). A root's
+`sampled` flag is always False here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import threading
+import time
+
+__all__ = ["Span", "SPAN_NAMES", "begin", "end", "span", "event",
+           "annotate", "current_root", "active", "detach", "restore",
+           "attached", "propagate", "phase_ns", "log_tree", "tree",
+           "validate", "phases_of"]
+
+log = logging.getLogger("tidb_tpu_torch.trace")
+
+_tl = threading.local()
+
+# declared span vocabulary, the JAX package's table as it is: every
+# trace.begin / trace.span call site names one of these, as a string
+# literal, so both packages' trees read the same names.
+SPAN_NAMES = {
+    # statement lifecycle (session/__init__.py)
+    "statement": "root of one non-internal statement execution",
+    "parse": "this statement's share of the batch parse",
+    "plan": "logical+physical planning (plan-cache miss)",
+    "execute": "executor tree drive, operator output boundary to rows",
+    "commit": "2PC commit incl. optimistic replay retries",
+    "admission": "wait in the server admission controller",
+    # device plane (sched.py, ops/runtime.py, store/copr.py)
+    "sched.slot": "wait for a global device dispatch slot",
+    "dispatch": "kernel dispatch: pad/transfer/async enqueue",
+    "finalize": "blocking device readback at the output boundary",
+    "host.fallback": "host-path aggregation of device-planned work",
+    # coprocessor fan-out (store/copr.py)
+    "copr.task": "one region task on a coprocessor pool worker",
+    "copr.stream": "one streaming fan-out worker's frame production",
+    # storage-side caches and deltas (store/device_cache.py, delta.py)
+    "hbm.fill": "HBM region-block cache upload",
+    "hbm.patch": "in-place delta patch of a resident HBM block",
+    "delta.fold": "base-chunk ⋈ delta-journal merge on the read path",
+    "delta.merge": "delta-store merge into new base blocks",
+    # hybrid join/agg partition phases (ops/hybrid.py)
+    "join.partition": "one radix partition's device chain",
+    # cross-process storage roots (store/remote.py)
+    "storage:coprocessor_stream": "storage-side root of one COP stream",
+    # cluster observability fan-out (util/statusclient.fetch_all): one
+    # bounded-timeout sweep over live members' status ports serving a
+    # cluster_* memtable or a /fleet/* endpoint
+    "cluster.fetch": "fan-out fetch over live members' status ports",
+}
+
+class Span:
+    # the last three slots are ROOT-ONLY retention state (sampling
+    # decided at begin(), TRACE forces, ids assigned on first need):
+    # begin() writes them; child spans leave them unset — the hot
+    # constructor must not pay three dead writes per span
+    __slots__ = ("name", "tags", "start_ns", "end_ns", "children",
+                 "events", "tid", "sampled", "forced", "trace_id")
+
+    def __init__(self, name: str, tags: dict | None = None):
+        self.name = name
+        self.tags = tags or {}
+        self.start_ns = time.perf_counter_ns()
+        self.end_ns = 0
+        self.children: list[Span] = []
+        self.events: list | None = None   # (name, t_ns, tags), lazy
+        self.tid = threading.get_ident()
+
+    @property
+    def duration_ns(self) -> int:
+        return (self.end_ns or time.perf_counter_ns()) - self.start_ns
+
+    def event(self, name: str, **tags) -> None:
+        """Point event on THIS span (fault retries, degrade/quarantine
+        transitions, watchdog fires — the device-plane state machine on
+        the statement timeline)."""
+        ev = (name, time.perf_counter_ns(), tags or None)
+        if self.events is None:
+            self.events = [ev]
+        else:
+            self.events.append(ev)
+
+    def to_dict(self) -> dict:
+        d = {"name": self.name, "duration_ns": self.duration_ns}
+        if self.tags:
+            d["tags"] = dict(self.tags)
+        if self.events:
+            d["events"] = [{"name": n, "tags": t} if t else {"name": n}
+                           for n, _t_ns, t in self.events]
+        if self.children:
+            d["children"] = [c.to_dict() for c in self.children]
+        return d
+
+
+def begin(name: str, **tags) -> Span:
+    """Open a root span for the current thread's statement. Statement
+    roots (`name == "statement"`) take the deterministic 1-in-N
+    sampling decision here — `tidb_tpu_trace_sample` — so the whole
+    tree below either records for retention or is a pure phase-
+    breakdown skeleton."""
+    root = Span(name, tags)
+    root.sampled = False
+    root.forced = False
+    root.trace_id = None
+    _tl.cur = root
+    # the ROOT is tracked separately from the current span: origin()
+    # must name the enclosing statement from arbitrarily deep inside
+    # its tree (spans carry no parent pointers), and the store-RPC
+    # client fires from exactly there
+    _tl.root = root
+    return root
+
+
+def end(root: Span) -> Span:
+    root.end_ns = time.perf_counter_ns()
+    if getattr(_tl, "cur", None) is root:
+        _tl.cur = None
+    if getattr(_tl, "root", None) is root:
+        _tl.root = None
+    return root
+
+
+def current_root():
+    return getattr(_tl, "cur", None)
+
+
+def detach():
+    """Suspend the thread's trace (internal bookkeeping sessions run
+    inside a client statement but must not pollute its phase breakdown).
+    -> opaque token for restore()."""
+    token = (getattr(_tl, "cur", None), getattr(_tl, "root", None))
+    _tl.cur = None
+    _tl.root = None
+    return token
+
+
+def restore(token) -> None:
+    _tl.cur, _tl.root = token
+
+
+def propagate():
+    """Opaque token naming the current span AND its statement root, for
+    re-installation inside worker threads with `attached()` — the trace
+    twin of runtime_stats.current() / memtrack.current() riding into
+    the coprocessor fan-out. The root rides along so store RPCs issued
+    from pool/stream workers still know which statement they originate
+    from (origin())."""
+    return (getattr(_tl, "cur", None), getattr(_tl, "root", None))
+
+
+@contextlib.contextmanager
+def attached(token):
+    """Install a propagate() token (possibly None) as this thread's
+    current span + root: spans the worker opens hang off the
+    dispatching statement's tree. Child appends are GIL-atomic list
+    ops, so concurrent workers may attach under one parent."""
+    prev_cur = getattr(_tl, "cur", None)
+    prev_root = getattr(_tl, "root", None)
+    cur, root = token if token is not None else (None, None)
+    _tl.cur = cur if cur is not None else prev_cur
+    _tl.root = root if root is not None else prev_root
+    try:
+        yield
+    finally:
+        _tl.cur = prev_cur
+        _tl.root = prev_root
+
+
+class span:
+    """Child span under the thread's current span; a no-op (still timed,
+    but unattached) when no trace is active — internal sessions and
+    worker threads pay one thread-local read. A plain slotted context
+    manager, not @contextmanager: this sits on the per-statement and
+    per-dispatch hot paths, and the generator machinery would double
+    the disarmed cost (pinned <5us/statement by TestOverhead). The
+    span opens in __init__ — legal because a `with` statement calls
+    __enter__ immediately after evaluating the expression, with no
+    user code in between; use only as `with trace.span(...)`."""
+
+    __slots__ = ("_span", "_parent")
+
+    def __init__(self, name: str, **tags):
+        parent = getattr(_tl, "cur", None)
+        s = Span(name, tags)
+        self._span = s
+        self._parent = parent
+        if parent is not None:
+            parent.children.append(s)
+            _tl.cur = s
+
+    def __enter__(self) -> Span:
+        return self._span
+
+    def __exit__(self, exc_type, exc, tb):
+        self._span.end_ns = time.perf_counter_ns()
+        if self._parent is not None:
+            _tl.cur = self._parent
+        return False
+
+
+def active() -> bool:
+    """True when the calling thread is inside a traced statement."""
+    return getattr(_tl, "cur", None) is not None
+
+
+def annotate(**tags) -> None:
+    """Merge tags into the thread's CURRENT span without opening a child
+    — safe from inside generators (a `with span(...)` wrapped around a
+    `yield` would interleave restores with the consumer's own spans).
+    Used by the streaming coprocessor to stamp per-stream frame/byte/
+    stall counts onto the dispatching span. No-op untraced."""
+    cur = getattr(_tl, "cur", None)
+    if cur is not None:
+        cur.tags.update(tags)
+
+
+def event(name: str, **tags) -> None:
+    """Point event on the thread's current span (no-op untraced): the
+    call-site form for the device-plane recovery transitions."""
+    cur = getattr(_tl, "cur", None)
+    if cur is not None:
+        cur.event(name, **tags)
+
+
+def phase_ns(root: Span | None, name: str) -> int:
+    """Sum of top-level child spans with `name` (a statement's parse /
+    plan / execute / commit phase totals)."""
+    if root is None:
+        return 0
+    return sum(c.duration_ns for c in root.children if c.name == name)
+
+
+def log_tree(root: Span, sql: str) -> None:
+    parts: list[str] = []
+
+    def walk(s: Span, depth: int) -> None:
+        parts.append("%s%s %.3fms %s" % (
+            "  " * depth, s.name, s.duration_ns / 1e6,
+            s.tags if s.tags else ""))
+        for c in s.children:
+            walk(c, depth + 1)
+
+    walk(root, 0)
+    log.info("trace for %r:\n%s", sql[:256], "\n".join(parts))
+
+
+# -- exports -----------------------------------------------------------------
+
+
+def tree(root: Span, base_ns: int | None = None) -> dict:
+    """Nested export of one span tree with start offsets: start_us is
+    relative to the ROOT's start, so the JSON is self-contained and a
+    still-open span (the TRACE statement snapshots its own live root)
+    reads as closed at "now"."""
+    base = root.start_ns if base_ns is None else base_ns
+
+    def walk(s: Span) -> dict:
+        d = {"name": s.name,
+             "start_us": round((s.start_ns - base) / 1e3, 3),
+             "duration_us": round(s.duration_ns / 1e3, 3)}
+        if s.tags:
+            d["tags"] = {k: v for k, v in s.tags.items()}
+        if s.events:
+            d["events"] = [
+                {"name": n, "at_us": round((t - base) / 1e3, 3),
+                 **({"tags": tg} if tg else {})}
+                for n, t, tg in s.events]
+        if s.children:
+            d["children"] = [walk(c) for c in s.children]
+        return d
+
+    return walk(root)
+
+
+def validate(root: Span) -> list[str]:
+    """Structural problems of a FINISHED tree: begin-without-end spans
+    and negative durations (the balance check the trace bench and the
+    TRACE tests assert empty)."""
+    problems: list[str] = []
+
+    def walk(s: Span) -> None:
+        if not s.end_ns:
+            problems.append(f"span {s.name!r} has no end (begin "
+                            f"without end)")
+        elif s.end_ns < s.start_ns:
+            problems.append(f"span {s.name!r} ends before it starts")
+        for c in s.children:
+            walk(c)
+
+    walk(root)
+    return problems
+
+
+# the bench attribution's phase buckets: span names summed per trace.
+# "other" is the statement remainder — with no cross-thread overlap the
+# per-trace phase sum equals the statement duration exactly.
+_PHASE_SPANS = {
+    "parse": ("parse",),
+    "plan": ("plan",),
+    "admission_wait": ("admission",),
+    "sched_stall": ("sched.slot",),
+    "device_dispatch": ("dispatch",),
+    "finalize": ("finalize",),
+    "host_fallback": ("host.fallback",),
+    "commit": ("commit",),
+}
+
+
+def phases_of(root: Span) -> dict:
+    """Per-phase nanosecond sums for one finished statement tree — the
+    latency-attribution input (bench serve/chaos blocks, ROADMAP item
+    2's p99 breakdown). Spans sum BY NAME across the whole tree (pool
+    workers included), so concurrent workers can push a phase past the
+    wall-clock statement time; "other" floors at zero."""
+    sums: dict[str, int] = {}
+
+    def walk(s: Span) -> None:
+        sums[s.name] = sums.get(s.name, 0) + s.duration_ns
+        for c in s.children:
+            walk(c)
+
+    for c in root.children:
+        walk(c)
+    out = {phase: sum(sums.get(n, 0) for n in names)
+           for phase, names in _PHASE_SPANS.items()}
+    total = root.duration_ns
+    out["total"] = total
+    out["other"] = max(0, total - sum(
+        v for k, v in out.items() if k != "total"))
+    return out
