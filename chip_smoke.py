@@ -49,19 +49,40 @@ Phases, one JSON line each:
           with an l_returnflag the block's dictionary lacks) and 1,000
           deletes in one region (that block patched on the card, the rest
           hits); after 4,000 more updates (past tidb_tpu_delta_merge_rows:
-          the delta store merges and the region re-fills). Every run equals
+          the delta store merges; the written region re-fills, the three
+          untouched ones stay hot in both caches). Every run equals
           an exact numpy truth over the mutated arrays and leaves the
-          statement's ledger at 0. Before them, on a store of its own at
+          statement's ledger at 0. Between the hot run and the first
+          batch, TPC-H Q3 and Q5 from the same store (run_q3_store,
+          run_q5_store: TableReader leaves through the coprocessor,
+          materialized), cold then warm from the chunk cache, each equal
+          to its numpy truth (Q3 in every group before its TopN), with
+          their join paths, chunk-cache hits and misses, host->device
+          bytes, kernel launches and ledger peak; then the kernel-profile
+          registry (profiler.snapshot: dispatches, busy ms, bytes and
+          roofline fraction per kernel family against the card's
+          datasheet peak). Before them, on a store of its own at
           SF 0.1 (CHECK_SF) fanned out on one thread, the process's first
           fused dispatch and first patch (of a 64-row batch) run under
           sync-debug "error"; the patch's device program (B11) is timed
           by CUDA events, the whole patch by the host clock; the
           hbm-cache ledger node returns to 0 at shed()
+  faults  the device plane under injected faults, on Q1 from a store of
+          its own at SF 0.1 (CHECK_SF) on one fan-out thread: a dispatch
+          fault once (retried on the card, no fallback), then in every
+          dispatch for three statements (each degrades to the host with
+          `fault` fallbacks; the device is quarantined, its HBM blocks
+          shed, the hbm-cache ledger at 0, the third statement served
+          under `quarantine`), the quarantine probe readmitting the card
+          (blocks refilled, then hit), and the dispatch watchdog at
+          tidb_tpu_dispatch_timeout_ms = 120 against a 400 ms finalize
+          delay (the retryable DispatchTimeoutError, then a clean replay)
   kernel  each kernel against its plain torch version on the card, over
           dtypes, masks and shapes (checked before q1); then, at every
-          shape the cold Q1 run, the first Q3 and Q5 runs, the Q18 run and
-          the store's cold, first warm and patched runs gave it (their
-          calls recorded by segsum_bench.record_calls),
+          shape the cold Q1 run, the first Q3 and Q5 runs, the Q18 run,
+          the store's cold, first warm and patched runs and its cold Q3
+          and Q5 runs gave it (their calls recorded by
+          segsum_bench.record_calls),
           held again on those
           very inputs and timed: device time beside its host time per
           call, the plain version, one PyTorch library call and the bound;
@@ -71,8 +92,8 @@ Phases, one JSON line each:
           launches there on its path, its parity and its times
 With --profile, each of q1, q3 and q5 adds torch.profiler tables of one
 more run: device time by kernel, host time by op, device idle share; the
-store phase adds a hot and a cold run so profiled, fanned out on one
-thread.
+store phase adds one more warm run of its Q3 and Q5 and a hot and a
+cold Q1 run so profiled (Q1 fanned out on one thread).
 The card's name and power limit (as nvidia-smi gives them) stand on a
 line of their own, and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -878,6 +899,9 @@ def store_phase(args, dev, recorded) -> dict:
     if node.device != cache.resident_bytes() or not node.device:
         raise AssertionError(f"store: hbm-cache node {node.device} B, "
                              f"cache {cache.resident_bytes()} B")
+    # Q3 and Q5 on the loaded data, before the first batch changes it
+    out["queries"] = store_query_runs(args, dev, storage, d, recorded)
+    out["kernel_profile"] = kernel_profile()
     # the first batch: all in the last region (its handles run past n)
     lo = (regions - 1) * (n // regions)
     b1 = tpch.write_batch(d, np.arange(lo, n), args.seed + 1, 4000, 1000,
@@ -916,7 +940,12 @@ def store_phase(args, dev, recorded) -> dict:
         raise AssertionError(f"store: {out['merges']} delta merges after "
                              "the second batch")
     out["journal_rows_after_merge"] = storage.delta_store.rows_current()
-    run("merged")
+    merged = run("merged")
+    # the merge re-stamped the three regions no write touched: every
+    # region still hits the HBM cache (the written one through a patch)
+    if merged["hbm_hits"] != regions or merged["hbm_misses"]:
+        raise AssertionError(f"store merged: untouched regions went cold "
+                             f"{merged}")
     out["rows"] = [[str(x) for x in r] for r in mirror.truth()]
     if args.profile:
         # one thread, so cProfile sees the regions' work; the regions the
@@ -938,6 +967,224 @@ def store_phase(args, dev, recorded) -> dict:
         raise AssertionError(f"store: ledger nodes hold {node.device} B "
                              f"(hbm-cache), {delta.tracker().host} B "
                              "(delta-store) after shed")
+    return out
+
+
+def store_query_runs(args, dev, storage, d, recorded) -> dict:
+    """run_q3_store and run_q5_store over the store phase's storage, each
+    twice with the materialized coprocessor (tidb_tpu_copr_stream = 0):
+    cold (every region scanned, decoded and put in the chunk cache;
+    lineitem's regions may already be there from Q1, the same columns),
+    then warm from the chunk cache. Streamed, a selection plan's region
+    bigger than one frame (4 MiB) is re-scanned from the store on every
+    run, as in the JAX package, so only the materialized path reads the
+    chunk cache at SF 1. Each run equals the numpy truth (Q3 in every
+    group before its TopN too), launched the segment-sum kernel and
+    leaves the ledger at 0; the warm run misses the chunk cache nowhere.
+    The cold runs' segment_sum calls go to recorded["store-q3" /
+    "store-q5"]."""
+    from tidb_tpu_torch import config
+    from tidb_tpu_torch.benchmarks import segsum_bench, tpch
+    from tidb_tpu_torch.executor.agg import run_q3_store, run_q5_store
+    from tidb_tpu_torch.ops import runtime, segsum
+    cc = storage.chunk_cache
+    out = {}
+    for name, run in (("q3", run_q3_store), ("q5", run_q5_store)):
+        truth = {"q3": tpch.q3_truth, "q5": tpch.q5_truth}[name](d)
+        groups = tpch.q3_groups_truth(d) if name == "q3" else None
+        runs = {}
+        for label in ("cold", "warm"):
+            hits0, misses0, put0 = cc.hits, cc.misses, runtime.put_bytes()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with (segsum_bench.record_calls() if label == "cold"
+                  else contextlib.nullcontext()) as rec, \
+                    config.session_overlay({"tidb_tpu_copr_stream": 0}):
+                segsum.launches = 0
+                res = run(device=dev, storage=storage)
+                launches = segsum.launches
+            if rec is not None:
+                recorded[f"store-{name}"] = recorded_path(
+                    f"store {name}", rec, launches)
+            st = res.stats
+            where = f"store {name} {label}"
+            if res.rows != truth:
+                raise AssertionError(f"{where}: rows differ from the numpy "
+                                     f"truth:\n{res.rows}\n{truth}")
+            if groups is not None and sorted(res.groups) != groups:
+                raise AssertionError(
+                    f"{where}: the HashAgg's {len(res.groups)} groups "
+                    f"differ from the numpy truth's {len(groups)}")
+            if launches <= 0:
+                raise AssertionError(f"{where}: segment-sum kernel never "
+                                     "launched")
+            if st.fallbacks or st.mem_left:
+                raise AssertionError(f"{where}: fallbacks "
+                                     f"{st.fallback_reasons}, ledger left "
+                                     f"{st.mem_left} B")
+            if label == "warm" and (cc.misses != misses0 or
+                                    cc.hits == hits0):
+                raise AssertionError(f"{where}: {cc.misses - misses0} "
+                                     "chunk-cache misses in the warm run")
+            runs[label] = {
+                "seconds": res.seconds, "join_paths": st.join_paths,
+                "chunk_cache_hits": cc.hits - hits0,
+                "chunk_cache_misses": cc.misses - misses0,
+                "h2d_bytes": runtime.put_bytes() - put0,
+                "segsum_launches": launches, "ledger_peak": st.mem_peak,
+                "ledger_device_at_peak": st.mem_device_at_peak,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+                "groups": len(res.groups),
+                "stats": {k: v for k, v in vars(st).items()}}
+        out[name] = {"runs": runs,
+                     "rows": [[str(x) for x in r] for r in truth]}
+        if args.profile:
+            with config.session_overlay({"tidb_tpu_copr_stream": 0}):
+                out[name]["profile"] = profile_run(
+                    lambda: run(device=dev, storage=storage))
+    return out
+
+
+def kernel_profile() -> dict:
+    """The kernel-profile registry (tidb_tpu_torch.profiler) as the
+    process's runs left it: per kernel family and plan, dispatches, busy
+    ms (dispatch enqueue plus the blocking readback, host clock), bytes
+    and the roofline fraction against the card's datasheet peak."""
+    from tidb_tpu_torch import profiler
+    peak, src = profiler.platform_peak_gbps()
+    rows = [{"family": r["family"], "fingerprint": r["fingerprint"],
+             "dispatches": r["dispatches"], "busy_ms": r["busy_ns"] / 1e6,
+             "bytes_in": r["bytes_in"], "achieved_gbps": r["achieved_gbps"],
+             "roofline_fraction": r["roofline_fraction"],
+             "escalations": r["escalations"],
+             "fallbacks": r["fallback_reasons"]}
+            for r in profiler.snapshot()]
+    if not any(r["dispatches"] for r in rows):
+        raise AssertionError(f"kernel profile: no dispatch recorded {rows}")
+    return {"peak_gbps": peak, "peak_source": src, "rows": rows}
+
+
+def faults_phase(args, dev) -> dict:
+    """The device plane's fault handling on Q1 from a store of its own at
+    min(--sf, CHECK_SF), fanned out on one thread so the fault order is
+    the same in every run. After a cold and a warm run (4 HBM blocks):
+    `device/dispatch` raising once (the retry serves it: equal rows, no
+    fallback); raising in every dispatch for three statements (each
+    degrades to the host path with `fault` fallbacks; the device is
+    quarantined, every HBM block shed, the hbm-cache ledger at 0, later
+    tasks fall back under `quarantine`); then, past the quarantine
+    window, the probe readmits the device, that run refills the blocks
+    and the next hits them. Last, tidb_tpu_dispatch_timeout_ms = 120
+    against a 400 ms `device/finalize` delay: the watchdog raises the
+    retryable DispatchTimeoutError, and the replay is clean. No failure
+    is caught but that one expected error."""
+    from tidb_tpu_torch import config, metrics, sched
+    from tidb_tpu_torch.benchmarks import tpch
+    from tidb_tpu_torch.executor.agg import run_q1_store
+    from tidb_tpu_torch.store import device_cache
+    from tidb_tpu_torch.store.storage import new_mock_storage
+    from tidb_tpu_torch.util import failpoint
+    sf = min(args.sf, CHECK_SF)
+    d = tpch.ScaledTpch(sf, args.seed)
+    truth = tpch.q1_truth(d)
+    storage = new_mock_storage(device=dev)
+    t0 = time.perf_counter()
+    tpch.load_store(storage, d)
+    out = {"phase": "faults", "sf": sf, "seed": args.seed,
+           "load_s": time.perf_counter() - t0, "runs": {}}
+    node = device_cache.tracker()
+    health = sched.device_health()
+    regions = 4
+
+    def hbm_hits():
+        return metrics.snapshot().get(metrics.HBM_CACHE_HITS, 0)
+
+    def run(name):
+        hits0 = hbm_hits()
+        t0 = time.perf_counter()
+        res = run_q1_store(device=dev, storage=storage)
+        got = {"seconds": time.perf_counter() - t0,
+               "fallbacks": dict(res.stats.fallback_reasons),
+               "degraded": res.stats.fault_degraded,
+               "hbm_hits": hbm_hits() - hits0,
+               "hbm_blocks": len(storage.device_cache),
+               "hbm_resident": node.device,
+               "health": health.snapshot()}
+        out["runs"][name] = got
+        if res.rows != truth or res.stats.mem_left:
+            raise AssertionError(f"faults {name}: rows differ from the "
+                                 "truth or the ledger holds "
+                                 f"{res.stats.mem_left} B: {got}")
+        return got
+
+    def expect(name, ok):
+        if not ok:
+            raise AssertionError(f"faults {name}: {out['runs'].get(name)}")
+
+    window = sched._QUARANTINE_S
+    # the probe window opens only where the phase rewinds it below: a
+    # statement may outlast the 1 s window
+    sched._QUARANTINE_S = 600.0
+    try:
+        with config.session_overlay({"tidb_tpu_cop_concurrency": 1}):
+            run("cold")
+            warm = run("warm")
+            expect("warm", warm["hbm_blocks"] == regions)
+            failpoint.enable("device/dispatch", "1*raise(DeviceFaultError)")
+            once = run("dispatch once")
+            failpoint.disable("device/dispatch")
+            expect("dispatch once", not once["fallbacks"] and
+                   not once["degraded"] and once["health"]["faults"] == 1
+                   and once["hbm_hits"] >= regions)
+            failpoint.enable("device/dispatch", "raise(DeviceFaultError)")
+            try:
+                names = [f"dispatch persistent {i}" for i in (1, 2, 3)]
+                for name in names:
+                    got = run(name)
+                    expect(name, got["degraded"] or
+                           got["fallbacks"].get("quarantine"))
+            finally:
+                failpoint.disable("device/dispatch")
+            first, last = (out["runs"][n] for n in (names[0], names[-1]))
+            expect(names[0], first["fallbacks"].get("fault", 0) > 0 and
+                   first["degraded"])
+            expect(names[-1], last["health"]["quarantined"] and
+                   last["health"]["quarantines"] == 1 and
+                   last["fallbacks"] == {"quarantine": regions} and
+                   last["hbm_resident"] == 0 and last["hbm_blocks"] == 0)
+            health._probe_at = time.monotonic() - 0.01
+            probe = run("probe")
+            expect("probe", not probe["health"]["quarantined"] and
+                   not probe["fallbacks"] and
+                   probe["hbm_blocks"] == regions)
+            again = run("after readmit")
+            expect("after readmit", again["hbm_hits"] == regions and
+                   not again["fallbacks"])
+            timeouts0 = metrics.snapshot().get(metrics.DISPATCH_TIMEOUTS, 0)
+            config.set_var("tidb_tpu_dispatch_timeout_ms", 120)
+            failpoint.enable("device/finalize", "delay(400)")
+            try:
+                run_q1_store(device=dev, storage=storage)
+                raise AssertionError("faults watchdog: the 400 ms finalize "
+                                     "ran past 120 ms unstopped")
+            except failpoint.DispatchTimeoutError as e:
+                out["watchdog"] = {"error": str(e), "retryable":
+                                   isinstance(e, failpoint.DeviceFaultError)}
+            finally:
+                failpoint.disable("device/finalize")
+                config.set_var("tidb_tpu_dispatch_timeout_ms", 0)
+            out["watchdog"]["timeouts"] = metrics.snapshot().get(
+                metrics.DISPATCH_TIMEOUTS, 0) - timeouts0
+            expect("watchdog", out["watchdog"]["timeouts"] >= 1)
+            replay = run("replay")
+            expect("replay", not replay["fallbacks"])
+            out["scheduler"] = sched.stats()
+            if out["scheduler"]["scheduler"]["inflight"]:
+                raise AssertionError(f"faults: slots left {out['scheduler']}")
+    finally:
+        sched._QUARANTINE_S = window
+        failpoint.disable_all()
+        storage.close()
     return out
 
 
@@ -1022,6 +1269,7 @@ def main() -> int:
     emit(q18_phase(args, dev, d, tables, recorded))
     del d, tables
     emit(store_phase(args, dev, recorded))
+    emit(faults_phase(args, dev))
 
     # the kernel at every shape the three paths gave it, on their own
     # recorded inputs: held against the plain version, then timed

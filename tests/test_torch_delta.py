@@ -16,8 +16,13 @@ again, which patches that region's block on the device:
     representative row in the host chunk, which a patch reorders: the
     port maps positions through the block's position index, ROADMAP §C);
   * a second batch past tidb_tpu_delta_merge_rows merges in both: the
-    journal keeps the same rows, the cache keeps the same entries, a
-    window below the new floor answers STALE, and Q1 stays exact.
+    journal keeps the same rows, both caches keep the reference's merged
+    entry (and, in the port, the three regions no write touched,
+    re-stamped), a window below the new floor answers STALE, and Q1
+    stays exact;
+  * after one committed update in the last region and a merge, a Q1
+    run hits both caches in the three untouched regions in the port and
+    misses them in the reference.
 """
 
 import contextlib
@@ -249,8 +254,10 @@ def test_merge_and_stale_match_the_reference(run):
     jm, pm = run["after_merge"]
     assert pm[0] == jm[0] == 400                 # batch 2 still journaled
     assert pm[1] == jm[1] > 0
-    assert pm[2] == jm[2] and len(pm[2]) == 1    # the merged region only
-    assert pm[3] == jm[3] and len(pm[3]) == 1
+    # the reference keeps the merged region only; the port also keeps
+    # the three regions no write touched, re-stamped (ROADMAP §C)
+    assert len(jm[2]) == 1 and set(jm[2]) <= set(pm[2]) and len(pm[2]) == 4
+    assert len(jm[3]) == 1 and set(jm[3]) <= set(pm[3]) and len(pm[3]) == 4
     jst, pst = run["stale"]
     assert jst is jdelta.STALE and pst is pdelta.STALE
 
@@ -279,3 +286,81 @@ def test_record_handles_and_pending_window():
         ds.close()
     assert out[0] == out[1]
     assert out[1][:4] == (12, [(keys[0], b"v2")], [1], [2])
+
+
+def _hbm_hits(metrics) -> int:
+    return int(metrics.snapshot().get(metrics.HBM_CACHE_HITS, 0))
+
+
+@pytest.fixture(scope="module")
+def merged_one_update():
+    """Fresh stores in both packages: Q1 twice (host fill, HBM fill), one
+    committed update in lineitem's last region, DeltaStore.merge(), then
+    one more Q1. -> {package: (chunk hits, chunk misses, HBM hits)} of
+    that last run, and the port's rows beside the truth. (A streamed
+    cold range consults the chunk cache by peek, so misses count only
+    where a lookup ran; hits are the measure.)"""
+    from tidb_tpu import metrics as jmetrics
+    from tidb_tpu_torch import metrics as pmetrics
+    js = jnew_storage()
+    s = Session(js)
+    s.execute("CREATE DATABASE tpch")
+    s.execute("USE tpch")
+    jtpch.load(s, js, jtpch.ScaledTpch(SF, SEED))
+    jinfo = s.domain.info_schema().table("tpch", "lineitem")
+    ps = pnew_storage(device="cpu")
+    d = ptpch.ScaledTpch(SF, SEED)
+    ptpch.load_store(ps, d)
+    for st in (js, ps):
+        st.async_commit_secondaries = False
+    seen = []
+    orig = jcopr.exec_cop_plan
+
+    def spy(plan, chunk, *a, **k):
+        seen.append(plan)
+        return orig(plan, chunk, *a, **k)
+    jcopr.exec_cop_plan = spy
+    try:
+        s.query(jtpch.Q1)
+    finally:
+        jcopr.exec_cop_plan = orig
+    jplan = seen[0]
+    mirror = ptpch.Q1Mirror(d)
+    out = {}
+    with sysvars(tidb_tpu_device_min_rows=1, tidb_tpu_copr_stream=1):
+        for _ in range(2):
+            _jax_q1(js, jplan)
+            run_q1_store(device="cpu", storage=ps)
+        n = d.counts["lineitem"]
+        b = ptpch.write_batch(d, np.arange(3 * (n // 4), n), 5, 1)
+        _jax_commit(js, jinfo, b)
+        ptpch.commit_batch(ps, b)
+        mirror.apply(b)
+        assert js.delta_store.merge() == ps.delta_store.merge() == 1
+        for name, st, metrics, q1 in (
+                ("jax", js, jmetrics, lambda: _jax_q1(js, jplan)),
+                ("port", ps, pmetrics,
+                 lambda: run_q1_store(device="cpu", storage=ps))):
+            cc = st.chunk_cache
+            h0, m0, hbm0 = cc.hits, cc.misses, _hbm_hits(metrics)
+            res = q1()
+            out[name] = (cc.hits - h0, cc.misses - m0,
+                         _hbm_hits(metrics) - hbm0)
+            if name == "port":
+                out["rows"] = (res.rows, mirror.truth())
+    yield out
+    s.close()
+    js.close()
+    ps.close()
+
+
+def test_merge_keeps_untouched_regions_hot(merged_one_update):
+    """ROADMAP §C: a merge after one update in the last region leaves the
+    three untouched regions hot in both of the port's caches (their
+    entries re-stamped at the merge's target), where the reference drops
+    them and re-scans all four regions; Q1 stays exact."""
+    got, want = merged_one_update["rows"]
+    assert got == want
+    port, jax = merged_one_update["port"], merged_one_update["jax"]
+    assert (port[0], port[2]) == (3, 3)
+    assert (jax[0], jax[2]) == (0, 0)

@@ -1,9 +1,9 @@
 """The port stands alone: tidb_tpu_torch imports neither jax nor
-tidb_tpu (by AST scan of every module, the storage path's included, and
-by sys.modules after CPU runs of Q1, Q18's inner block and Q1 through
-the store in a fresh process), and its entry points run on CUDA unless
-told otherwise, raising where there is none instead of quietly running
-on the CPU."""
+tidb_tpu (by AST scan of every module, the storage path's and the device
+plane's included, and by sys.modules after CPU runs of Q1, Q18's inner
+block, and Q1, Q3 and Q5 through the store under the device plane, in a
+fresh process), and its entry points run on CUDA unless told otherwise,
+raising where there is none instead of quietly running on the CPU."""
 
 import ast
 import json
@@ -67,6 +67,17 @@ config.set_var("tidb_tpu_device_min_rows", 1)
 st = run_q1_store(device="cpu", sf=0.002, seed=7)
 assert st.rows == tpch.q1_truth(d), st.rows
 assert run_q1_store(device="cpu", storage=st.storage).rows == st.rows
+from tidb_tpu_torch.executor.agg import run_q3_store, run_q5_store
+q3 = run_q3_store(device="cpu", storage=st.storage)
+assert q3.rows == tpch.q3_truth(d), q3.rows
+assert run_q5_store(device="cpu", storage=st.storage).rows == \
+    tpch.q5_truth(d)
+from tidb_tpu_torch import devplane, meter, profiler, sched
+from tidb_tpu_torch.util import supervisor
+assert supervisor.run_once("probe", lambda: None)
+assert sched.stats()["scheduler"]["grants"] > 0
+assert meter.server_snapshot()["device_ns"] > 0
+assert profiler.snapshot() and devplane.ndev() == 1
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))))
 """
@@ -94,7 +105,8 @@ def test_entry_points_default_to_cuda():
     from tidb_tpu_torch.chunk import Chunk
     from tidb_tpu_torch.executor import ExecContext
     from tidb_tpu_torch.executor.agg import (run_agg, run_q1, run_q1_store,
-                                             run_q3, run_q5, run_q18_inner)
+                                             run_q3, run_q3_store, run_q5,
+                                             run_q5_store, run_q18_inner)
     from tidb_tpu_torch.store import copr
     from tidb_tpu_torch.store.device_cache import DeviceCache
     from tidb_tpu_torch.store.storage import new_mock_storage
@@ -125,6 +137,8 @@ def test_entry_points_default_to_cuda():
         lambda: runtime.device_put_chunk(ch),
         lambda: runtime.device_put_chunk(Chunk(ch.columns), device="cuda"),
         lambda: run_q1_store(sf=0.002),
+        lambda: run_q3_store(sf=0.002),
+        lambda: run_q5_store(sf=0.002),
         lambda: new_mock_storage(),
         lambda: DeviceCache(),
         lambda: copr.exec_cop_plan(tpch.q1_cop_plan(

@@ -35,6 +35,7 @@ __all__ = ["ScaledTpch", "Q1", "Q3", "Q5", "TABLE_COLUMNS", "TABLE_IDS",
            "LINEITEM_COLUMNS", "QUERY_TABLES", "PLANS", "table_chunks",
            "lineitem_chunks", "q1_plan", "q1_truth", "q3_plan", "q3_finish",
            "q3_truth", "q3_groups_truth", "q5_plan", "q5_finish",
+           "q3_store_plan", "q5_store_plan", "STORE_PLANS",
            "q5_truth", "Q18_INNER", "q18_inner_plan", "q18_inner_truth",
            "q18_groups_truth", "table_column", "analyze_columns"]
 
@@ -368,26 +369,35 @@ Q3_CUTOFF = datetime.date(1995, 3, 15)
 Q5_FROM, Q5_TO = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
 
 
-def q3_plan():
-    """Q3's plan as the JAX planner builds it: HashAgg over
-    (customer [host filter c_mktsegment = 'BUILDING'] JOIN orders [pushed
-    o_orderdate < 1995-03-15] ON c_custkey = o_custkey) JOIN lineitem
-    [pushed l_shipdate > 1995-03-15] ON o_orderkey = l_orderkey, grouped
-    by (l_orderkey, o_orderdate, o_shippriority)."""
-    from tidb_tpu_torch.executor.agg import HashAgg
-    from tidb_tpu_torch.executor.join import HashJoin
-    from tidb_tpu_torch.executor.scan import TableScan
+def _leaf_col(table: str, name: str):
+    """A ColumnRef to column `name` of `table`'s scan schema (its DDL
+    columns, in DDL order: a TableScan's and a TableReader's alike)."""
+    from tidb_tpu_torch.expression import ColumnRef
+    cols = TABLE_COLUMNS[table]
+    j = next(i for i, (n, _ft) in enumerate(cols) if n == name)
+    return ColumnRef(j, cols[j][1], name)
+
+
+def _q3_filters() -> dict:
+    """{table: (filter, host_filter)} of Q3's leaves as the JAX planner
+    splits them: the string conjunct on the host, the date ranges pushed."""
     from tidb_tpu_torch.expression import Constant, Op, func
     from tidb_tpu_torch.sqltypes import new_string_field
-    customer = TableScan("customer", TABLE_COLUMNS["customer"])
-    customer.host_filter = func(Op.EQ, customer.col("c_mktsegment"),
-                                Constant("BUILDING", new_string_field()))
-    orders = TableScan("orders", TABLE_COLUMNS["orders"])
-    orders.filter = func(Op.LT, orders.col("o_orderdate"),
-                         _date_const(Q3_CUTOFF))
-    lineitem = TableScan("lineitem", LINEITEM_COLUMNS)
-    lineitem.filter = func(Op.GT, lineitem.col("l_shipdate"),
-                           _date_const(Q3_CUTOFF))
+    return {
+        "customer": (None, func(Op.EQ, _leaf_col("customer", "c_mktsegment"),
+                                Constant("BUILDING", new_string_field()))),
+        "orders": (func(Op.LT, _leaf_col("orders", "o_orderdate"),
+                        _date_const(Q3_CUTOFF)), None),
+        "lineitem": (func(Op.GT, _leaf_col("lineitem", "l_shipdate"),
+                          _date_const(Q3_CUTOFF)), None)}
+
+
+def _q3_tree(leaves: dict):
+    """Q3's HashJoin/HashAgg tree over `leaves` ({table: leaf})."""
+    from tidb_tpu_torch.executor.agg import HashAgg
+    from tidb_tpu_torch.executor.join import HashJoin
+    customer, orders, lineitem = (leaves[t] for t in
+                                  ("customer", "orders", "lineitem"))
     co = HashJoin(customer, orders, [customer.col("c_custkey")],
                   [orders.col("o_custkey")])
     col = HashJoin(co, lineitem, [_ref(co.schema, "o_orderkey")],
@@ -397,6 +407,41 @@ def q3_plan():
                          _ref(s, "o_shippriority")],
                    [_revenue_sum(_ref(s, "l_extendedprice"),
                                    _ref(s, "l_discount"))])
+
+
+def _scans(filters: dict) -> dict:
+    """{table: TableScan} over each table's chunks in hand."""
+    from tidb_tpu_torch.executor.scan import TableScan
+    return {t: TableScan(t, TABLE_COLUMNS[t], flt, host)
+            for t, (flt, host) in filters.items()}
+
+
+def _readers(infos: dict, filters: dict) -> dict:
+    """{table: TableReader} over selection CopPlans on the store: every
+    DDL column scanned (the JAX planner prunes none of these tables'),
+    `filter` pushed, `host_filter` the string conjunct."""
+    from tidb_tpu_torch.executor.reader import TableReader
+    from tidb_tpu_torch.plan.physical import CopPlan
+    return {t: TableReader(CopPlan(table=infos[t],
+                                   cols=list(infos[t].columns),
+                                   filter=flt, host_filter=host))
+            for t, (flt, host) in filters.items()}
+
+
+def q3_plan():
+    """Q3's plan as the JAX planner builds it: HashAgg over
+    (customer [host filter c_mktsegment = 'BUILDING'] JOIN orders [pushed
+    o_orderdate < 1995-03-15] ON c_custkey = o_custkey) JOIN lineitem
+    [pushed l_shipdate > 1995-03-15] ON o_orderkey = l_orderkey, grouped
+    by (l_orderkey, o_orderdate, o_shippriority), over TableScans."""
+    return _q3_tree(_scans(_q3_filters()))
+
+
+def q3_store_plan(infos: dict):
+    """q3_plan's tree with TableReader leaves over the store: one
+    selection CopPlan per table of `infos` ({table: TableInfo},
+    `table_infos()`), with the same filters."""
+    return _q3_tree(_readers(infos, _q3_filters()))
 
 
 def q3_finish(rows):
@@ -447,31 +492,31 @@ def q3_truth(d: ScaledTpch) -> list[tuple]:
              int(d.o_shippriority[uk[i]])) for i in top]
 
 
-def q5_plan():
-    """Q5's plan as the JAX planner builds it: the FROM-order left-deep
-    tree customer JOIN orders [pushed 1994-01-01 <= o_orderdate <
-    1995-01-01] ON c_custkey = o_custkey, JOIN lineitem ON o_orderkey =
-    l_orderkey, JOIN supplier ON (l_suppkey, c_nationkey) = (s_suppkey,
-    s_nationkey), JOIN nation ON s_nationkey = n_nationkey, JOIN region
-    [host filter r_name = 'ASIA'] ON n_regionkey = r_regionkey, under a
-    HashAgg grouped by n_name."""
-    from tidb_tpu_torch.executor.agg import HashAgg
-    from tidb_tpu_torch.executor.join import HashJoin
-    from tidb_tpu_torch.executor.scan import TableScan
+Q5_TABLES = ("customer", "orders", "lineitem", "supplier", "nation",
+             "region")
+
+
+def _q5_filters() -> dict:
+    """{table: (filter, host_filter)} of Q5's leaves: the o_orderdate
+    range pushed, r_name = 'ASIA' on the host."""
     from tidb_tpu_torch.expression import Constant, Op, func
     from tidb_tpu_torch.sqltypes import new_string_field
-    scans = {t: TableScan(t, TABLE_COLUMNS[t]) for t in
-             ("customer", "orders", "lineitem", "supplier", "nation",
-              "region")}
-    od = scans["orders"].col("o_orderdate")
-    scans["orders"].filter = func(
+    out = {t: (None, None) for t in Q5_TABLES}
+    od = _leaf_col("orders", "o_orderdate")
+    out["orders"] = (func(
         Op.AND, func(Op.GE, od, _date_const(Q5_FROM)),
         # DATE '1994-01-01' + INTERVAL '1' YEAR folds to a DATETIME
-        func(Op.LT, od, _date_const(Q5_TO, new_datetime_field())))
-    scans["region"].host_filter = func(
-        Op.EQ, scans["region"].col("r_name"),
-        Constant("ASIA", new_string_field()))
-    tree = scans["customer"]
+        func(Op.LT, od, _date_const(Q5_TO, new_datetime_field()))), None)
+    out["region"] = (None, func(Op.EQ, _leaf_col("region", "r_name"),
+                                Constant("ASIA", new_string_field())))
+    return out
+
+
+def _q5_tree(leaves: dict):
+    """Q5's left-deep HashJoin tree under a HashAgg over `leaves`."""
+    from tidb_tpu_torch.executor.agg import HashAgg
+    from tidb_tpu_torch.executor.join import HashJoin
+    tree = leaves["customer"]
     for right, lkeys, rkeys in (
             ("orders", ["c_custkey"], ["o_custkey"]),
             ("lineitem", ["o_orderkey"], ["l_orderkey"]),
@@ -479,13 +524,30 @@ def q5_plan():
              ["s_suppkey", "s_nationkey"]),
             ("nation", ["s_nationkey"], ["n_nationkey"]),
             ("region", ["n_regionkey"], ["r_regionkey"])):
-        scan = scans[right]
-        tree = HashJoin(tree, scan, [_ref(tree.schema, k) for k in lkeys],
-                        [scan.col(k) for k in rkeys])
+        leaf = leaves[right]
+        tree = HashJoin(tree, leaf, [_ref(tree.schema, k) for k in lkeys],
+                        [leaf.col(k) for k in rkeys])
     s = tree.schema
     return HashAgg(tree, [_ref(s, "n_name")],
                    [_revenue_sum(_ref(s, "l_extendedprice"),
                                    _ref(s, "l_discount"))])
+
+
+def q5_plan():
+    """Q5's plan as the JAX planner builds it: the FROM-order left-deep
+    tree customer JOIN orders [pushed 1994-01-01 <= o_orderdate <
+    1995-01-01] ON c_custkey = o_custkey, JOIN lineitem ON o_orderkey =
+    l_orderkey, JOIN supplier ON (l_suppkey, c_nationkey) = (s_suppkey,
+    s_nationkey), JOIN nation ON s_nationkey = n_nationkey, JOIN region
+    [host filter r_name = 'ASIA'] ON n_regionkey = r_regionkey, under a
+    HashAgg grouped by n_name, over TableScans."""
+    return _q5_tree(_scans(_q5_filters()))
+
+
+def q5_store_plan(infos: dict):
+    """q5_plan's tree with TableReader leaves over the store (see
+    q3_store_plan)."""
+    return _q5_tree(_readers(infos, _q5_filters()))
 
 
 def q5_finish(rows):
@@ -516,6 +578,10 @@ def q5_truth(d: ScaledTpch) -> list[tuple]:
 
 # query -> (plan builder, host tail) for executor/agg.run_q3 / run_q5
 PLANS = {"q3": (q3_plan, q3_finish), "q5": (q5_plan, q5_finish)}
+# query -> (the store plan over TableInfos, host tail) for
+# executor/agg.run_q3_store / run_q5_store
+STORE_PLANS = {"q3": (q3_store_plan, q3_finish),
+               "q5": (q5_store_plan, q5_finish)}
 
 
 Q18_INNER = """

@@ -22,7 +22,9 @@ __all__ = ["get_var", "set_var", "session_overlay", "current_overlay",
            "superchunk_rows", "pipeline_depth", "fused_scan_enabled",
            "encoded_exec_enabled", "fuse_fragments_enabled",
            "direct_agg_slots", "join_partitions", "skew_threshold",
-           "sort_spill_rows", "mem_quota_query", "UnknownVariableError"]
+           "sort_spill_rows", "mem_quota_query", "sched_inflight",
+           "sched_inflight_bytes", "dispatch_timeout_ms", "kernel_profile",
+           "kernel_profile_cap", "UnknownVariableError"]
 
 
 class UnknownVariableError(Exception):
@@ -84,6 +86,26 @@ _DEFS: dict[str, tuple[str, int]] = {
     # (host + device); 0 = unlimited. Crossing it fires the registered
     # spill actions first, then cancels with QuotaExceededError
     "tidb_tpu_mem_quota_query": (_INT, 0),
+    # global device dispatch window (sched.DeviceScheduler): at most this
+    # many kernel dispatches in flight across ALL concurrent statements,
+    # granted round-robin per statement. 0 = scheduler off
+    "tidb_tpu_sched_inflight": (_INT, 4),
+    # in-flight-bytes gate: a dispatch slot is granted only while the
+    # memtrack SERVER root's DEVICE ledger sits below this many bytes
+    # (0 = no bytes gate); one dispatch always passes when none is in
+    # flight
+    "tidb_tpu_sched_inflight_bytes": (_INT, 0),
+    # dispatch watchdog (sched.DispatchWatchdog): a finalize (or a
+    # device_slot-guarded sync dispatch) past this many milliseconds
+    # cancels its statement with the retryable device-fault error.
+    # 0 = off (the default)
+    "tidb_tpu_dispatch_timeout_ms": (_INT, 0),
+    # kernel profiling plane (profiler.py): per-kernel dispatch, busy
+    # time, bytes and roofline accounting keyed (family, plan
+    # fingerprint, device fingerprint)
+    "tidb_tpu_kernel_profile": (_BOOL, 1),
+    # bounded size of the kernel-profile registry (true LRU beyond)
+    "tidb_tpu_kernel_profile_cap": (_INT, 512),
 }
 
 _vals: dict[str, int] = {}
@@ -244,3 +266,23 @@ def delta_merge_ratio_pct() -> int:
 def delta_retain_ms() -> int:
     return max(0, _read("tidb_tpu_delta_retain_ms"))
 
+
+
+def sched_inflight() -> int:
+    return max(0, _read("tidb_tpu_sched_inflight"))
+
+
+def sched_inflight_bytes() -> int:
+    return max(0, _read("tidb_tpu_sched_inflight_bytes"))
+
+
+def dispatch_timeout_ms() -> int:
+    return max(0, _read("tidb_tpu_dispatch_timeout_ms"))
+
+
+def kernel_profile() -> bool:
+    return bool(_read("tidb_tpu_kernel_profile"))
+
+
+def kernel_profile_cap() -> int:
+    return min(max(16, _read("tidb_tpu_kernel_profile_cap")), 1 << 16)

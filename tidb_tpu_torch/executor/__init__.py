@@ -37,6 +37,7 @@ class ExecStats:
     mem_peak: int = 0           # the statement ledger's host+device peak
     mem_device_at_peak: int = 0  # ... and its device bytes at that moment
     mem_left: int = 0           # bytes the ledger still held at the end
+    fault_degraded: bool = False  # a device fault latched the host path
     fallback_reasons: dict = field(default_factory=dict)
     # build table (or "?") -> the path its join took: hybrid, pipelined,
     # fused, per-chunk

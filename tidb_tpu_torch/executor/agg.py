@@ -30,7 +30,9 @@ out over the regions (store/copr.py, store/stream.py), per-region
 partials from the chunk cache and the HBM block cache, merged here.
 
 `run_q3` / `run_q5` run TPC-H Q3 and Q5 through HashAgg, with their host
-tails (TopN, Sort) as plain host code; `run_q18_inner` runs Q18's inner
+tails (TopN, Sort) as plain host code; `run_q3_store` / `run_q5_store`
+run the same trees over TableReader leaves that read the store through
+the coprocessor and the chunk cache; `run_q18_inner` runs Q18's inner
 block (ANALYZE, the NDV rule, StreamAgg, the HAVING). Each opens a
 memtrack statement root carrying tidb_tpu_mem_quota_query, as a
 session does for a statement.
@@ -44,7 +46,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from tidb_tpu_torch import config, memtrack
+from tidb_tpu_torch import config, memtrack, profiler, sched
 from tidb_tpu_torch.chunk import Chunk, Column
 from tidb_tpu_torch.executor import ExecContext, ExecStats
 from tidb_tpu_torch.executor.join import HashJoin
@@ -64,7 +66,8 @@ from tidb_tpu_torch.sqltypes import np_dtype_for, object_fill
 __all__ = ["Q1Result", "QueryResult", "StoreResult", "HashAgg",
            "StreamAgg", "STREAM_AGG_NDV", "agg_algorithm",
            "superchunk_partials", "run_agg", "run_q1", "run_q1_store",
-           "run_q3", "run_q5", "run_q18_inner"]
+           "run_q3", "run_q5", "run_q3_store", "run_q5_store",
+           "run_q18_inner"]
 
 
 def _host_agg(chunk, filter_expr, group_exprs, aggs):
@@ -89,40 +92,58 @@ def escalating_pipeline(batches, kernel, dispatch, finalize, escalate,
                         on_miss, stats):
     """The dispatch-ahead pipeline both aggregation paths share, with
     their recovery. dispatch(k, batch) -> token and finalize(k, batch,
-    token) -> GroupResult run each batch through the current kernel k. A
+    token) -> GroupResult run each batch through the current kernel k; a
+    None token (or a ("host", ...) one) is a batch the host serves. A
     CapacityError from finalize re-plans once (escalate(err) -> a kernel,
     or None when the overflow is hopeless), counted in escalations: the
-    batch runs again through the new kernel and later batches dispatch
-    with it. A miss that survives, or a CollisionError, goes to
-    on_miss(batch, token, reason)."""
+    batch runs again through the new kernel under a scheduler slot, and
+    later batches dispatch with it. A miss that survives, or a
+    CollisionError, goes to on_miss(batch, token, reason). The kernel's
+    profile row (profiler.py) records the dispatches, the escalation and
+    the miss."""
     state = {"k": kernel}
 
     def dispatch_current(batch):
         k = state["k"]
-        return k, dispatch(k, batch)
+        tok = dispatch(k, batch)
+        if tok is None:
+            return None
+        if isinstance(tok, tuple) and tok and \
+                isinstance(tok[0], str) and tok[0] == "host":
+            return ("host", k, tok)
+        return k, tok
 
     def finalize_or_recover(batch, tok):
-        k, token = tok
+        if tok is None:
+            k, token = state["k"], None
+        elif isinstance(tok[0], str):
+            _h, k, token = tok
+        else:
+            k, token = tok
         reason = "capacity"
         try:
             return finalize(k, batch, token)
         except CapacityError as e:
+            profiler.note_escalation(profiler.profile_of(k))
             k2 = escalate(e)
             if k2 is not None:
                 stats.escalations += 1
                 state["k"] = k2      # later batches dispatch with it
-                try:
-                    return finalize(k2, batch, dispatch(k2, batch))
-                except CapacityError:
-                    pass
-                except CollisionError:
-                    reason = "collision"
+                with sched.device_slot(profile=profiler.profile_of(k2)):
+                    try:
+                        return finalize(k2, batch, dispatch(k2, batch))
+                    except CapacityError:
+                        pass
+                    except CollisionError:
+                        reason = "collision"
         except CollisionError:
             reason = "collision"
+        profiler.note_kernel_fallback(profiler.profile_of(k), reason)
         return on_miss(batch, token, reason)
 
     return runtime.pipeline_map(batches, dispatch_current,
-                                finalize_or_recover, config.pipeline_depth())
+                                finalize_or_recover, config.pipeline_depth(),
+                                profile=profiler.profile_of(kernel))
 
 
 def superchunk_partials(chunks, filter_expr, group_exprs, aggs,
@@ -147,7 +168,10 @@ def superchunk_partials(chunks, filter_expr, group_exprs, aggs,
     def dispatch(k, chunk):
         if k is None or chunk.num_rows < min_rows:
             return None      # host path at finalize
-        return k.dispatch(chunk)
+        tok = k.dispatch(chunk)
+        profiler.note_bytes(profiler.profile_of(k),
+                            nbytes=k.dispatch_nbytes(chunk))
+        return tok
 
     def finalize(k, chunk, pending):
         if pending is None:
@@ -327,18 +351,23 @@ class HashAgg:
             n = sc.num_rows
             pk = join._probe_keys(enc, sc)
             if n < min_rows and nb < join._DEVICE_MIN_BUILD:
-                return pk, None
+                return ("host", pk)
             if build_dev is None:
                 # build lanes stay device-resident for the whole probe
                 build_dev = k.prepare_build(build, bk, nb)
             stats.fused_dispatches += 1
-            return pk, k.dispatch(build_dev, nb, pk, sc, n)
+            tok = k.dispatch(build_dev, nb, pk, sc, n)
+            # the probe superchunk's padded upload: the kernel has no
+            # scratch sizing of its own yet
+            profiler.note_bytes(profiler.profile_of(k),
+                                nbytes=memtrack.device_put_bytes(sc))
+            return pk, tok
 
         def finalize(k, sc, tok):
-            pk, pend = tok
-            if pend is None:
+            if isinstance(tok[0], str):
                 stats.host_batches += 1
-                return decoded_batch(pk, sc)
+                return decoded_batch(tok[1], sc)
+            pk, pend = tok
             return k.finalize(sc, build, nb, pend)
 
         def on_miss(sc, tok, reason):
@@ -485,7 +514,10 @@ class StreamAgg:
         k = self._kernel_for(ctx, device) if use_device else None
         if k is None or part.num_rows < config.device_min_rows():
             return self._host_part(ctx, part)
-        with memtrack.device_scope(self, k.dispatch_nbytes(part)):
+        nb = k.dispatch_nbytes(part)
+        with sched.device_slot(), memtrack.device_scope(self, nb), \
+                profiler.dispatch_section(profiler.profile_of(k),
+                                          nbytes=nb):
             gr = k(part)
         ctx.stats.device_batches += 1
         return gr
@@ -507,10 +539,12 @@ class StreamAgg:
             db = k.dispatch_nbytes(part)
             memtrack.consume(self, device=db)
             try:
-                return k, k.dispatch(part), db
+                tok = k, k.dispatch(part), db
             except BaseException:
                 memtrack.release(self, device=db)
                 raise
+            profiler.note_bytes(profiler.profile_of(k), nbytes=db)
+            return tok
 
         def finalize(part, tok):
             if tok is None:
@@ -526,7 +560,8 @@ class StreamAgg:
         return runtime.pipeline_map(parts, dispatch, finalize,
                                     config.pipeline_depth(),
                                     tracker=memtrack.op_node(self),
-                                    cost=memtrack.chunk_bytes)
+                                    cost=memtrack.chunk_bytes,
+                                    profile=profiler.profile_of(self._kernel))
 
 
 # beyond this many estimated groups the sort-based StreamAgg beats the
@@ -606,14 +641,7 @@ def run_q1_store(sf: float = 1.0, seed: int = 42, device=None,
     from tidb_tpu_torch import runtime_stats
     from tidb_tpu_torch.benchmarks import tpch
     from tidb_tpu_torch.executor.reader import TableReader
-    from tidb_tpu_torch.store.storage import new_mock_storage
-    if storage is None:
-        storage = new_mock_storage(device=device)
-        tpch.load_store(storage, tpch.ScaledTpch(sf, seed))
-    elif device is not None and \
-            runtime.resolve_device(device) != storage.device:
-        raise ValueError(f"the storage runs on {storage.device}, "
-                         f"not {device}")
+    storage = _store_of(sf, seed, device, storage)
     cop = tpch.q1_cop_plan(tpch.table_infos()["lineitem"])
     ctx = ExecContext(storage.device, storage=storage,
                       read_ts=storage.current_ts())
@@ -642,6 +670,7 @@ class QueryResult:
     seconds: float      # host clock, tables in hand to final rows
     tables: dict = field(repr=False, default_factory=dict)
     groups: list = field(repr=False, default_factory=list)  # before the tail
+    storage: object = field(repr=False, default=None)   # store runs
 
 
 def _chunk_rows(chunk: Chunk) -> list[tuple]:
@@ -657,8 +686,10 @@ def _statement(stats: ExecStats):
     """A run as one statement: a memtrack statement root carrying
     tidb_tpu_mem_quota_query, installed on this thread as a session does,
     with the segment-sum kernel's launches read around it. On exit the
-    launches, the ledger's peak and what it still holds (0 after a clean
-    run) go to `stats`, and the root detaches."""
+    launches, the ledger's peak, what it still holds (0 after a clean
+    run) and whether a device fault degraded the statement to the host
+    path (sched.degrade_statement) go to `stats`, and the root
+    detaches."""
     root = memtrack.statement_root(None, quota=config.mem_quota_query())
     launches = segsum.launches
     try:
@@ -670,6 +701,7 @@ def _statement(stats: ExecStats):
             stats.mem_peak = root.total_peak
             stats.mem_device_at_peak = root.device_at_peak
         stats.mem_left = root.total()
+        stats.fault_degraded = root.fault_degraded
         root.detach()
 
 
@@ -709,6 +741,69 @@ def run_q5(sf: float = 10.0, seed: int = 42, device=None, tables=None,
     """TPC-H Q5 at scale factor `sf` on `device`: rows (n_name, revenue
     as a scaled int at frac 4), by revenue descending."""
     return _run_query("q5", sf, seed, device, tables, superchunk_rows)
+
+
+def _store_of(sf: float, seed: int, device, storage):
+    """`storage` (checked against `device`), or a new mock store on
+    `device` with ScaledTpch(sf, seed) bulk-loaded into it (lineitem and
+    orders in 4 regions each)."""
+    from tidb_tpu_torch.benchmarks import tpch
+    from tidb_tpu_torch.store.storage import new_mock_storage
+    if storage is None:
+        storage = new_mock_storage(device=device)
+        tpch.load_store(storage, tpch.ScaledTpch(sf, seed))
+    elif device is not None and \
+            runtime.resolve_device(device) != storage.device:
+        raise ValueError(f"the storage runs on {storage.device}, "
+                         f"not {device}")
+    return storage
+
+
+def _run_store_query(name: str, sf: float, seed: int, device,
+                     storage) -> QueryResult:
+    """Q3 or Q5 over the store as one statement: the plan's TableReader
+    leaves send their selection CopPlans at one snapshot, and HashJoin /
+    HashAgg run above them as over chunks in hand."""
+    from tidb_tpu_torch import runtime_stats
+    from tidb_tpu_torch.benchmarks import tpch
+    storage = _store_of(sf, seed, device, storage)
+    build, finish = tpch.STORE_PLANS[name]
+    plan = build(tpch.table_infos())
+    ctx = ExecContext(storage.device, storage=storage,
+                      read_ts=storage.current_ts())
+    coll = runtime_stats.StatsCollector()
+    t0 = time.perf_counter()
+    with _statement(ctx.stats), runtime_stats.collecting(coll):
+        (chunk,) = plan.chunks(ctx)
+    groups = _chunk_rows(chunk)
+    rows = finish(groups)
+    seconds = time.perf_counter() - t0
+    for st in coll.ops():
+        for reason, n in st.fallback_reasons.items():
+            ctx.stats.fallback_reasons[reason] = \
+                ctx.stats.fallback_reasons.get(reason, 0) + n
+    return QueryResult(rows=rows, stats=ctx.stats, seconds=seconds,
+                       groups=groups, storage=storage)
+
+
+def run_q3_store(sf: float = 1.0, seed: int = 42, device=None,
+                 storage=None) -> QueryResult:
+    """TPC-H Q3 served from the mock TiKV store on `device` (CUDA unless
+    the caller asks for another): customer, orders and lineitem read by
+    TableReaders through the coprocessor (streamed by default, from the
+    chunk cache once warm), joined and aggregated as run_q3 does, then
+    its TopN. Without `storage` a store is made and ScaledTpch(sf, seed)
+    loaded into it; pass the `storage` of an earlier result to run again
+    over the same store. -> QueryResult with `groups` (every HashAgg
+    group before the TopN) and `rows` in run_q3's layout."""
+    return _run_store_query("q3", sf, seed, device, storage)
+
+
+def run_q5_store(sf: float = 1.0, seed: int = 42, device=None,
+                 storage=None) -> QueryResult:
+    """TPC-H Q5 served from the mock TiKV store on `device`: the six
+    tables read by TableReaders, as run_q3_store reads Q3's."""
+    return _run_store_query("q5", sf, seed, device, storage)
 
 
 def run_q18_inner(sf: float = 10.0, seed: int = 42, device=None,

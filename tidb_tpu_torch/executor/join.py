@@ -23,6 +23,10 @@ package bills them. Under a statement quota every join with a build of
 _DEVICE_MIN_BUILD rows takes the hybrid path, whose build registers the
 quota spill action.
 
+Every dispatch goes through the device plane: the pipelined and hybrid
+probes take a scheduler slot per in-flight token (ops/runtime.
+pipeline_map), the per-chunk path one per sync call (sched.device_slot).
+
 Left out: the mesh shuffle kernel (the multi-device plane), the cross
 join, MergeJoinExec and the runtime-stats hooks.
 """
@@ -31,7 +35,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from tidb_tpu_torch import config, memtrack
+from tidb_tpu_torch import config, memtrack, sched
 from tidb_tpu_torch.chunk import Chunk, Column
 from tidb_tpu_torch.ops import hybrid as op_hybrid
 from tidb_tpu_torch.ops import runtime as op_runtime
@@ -210,7 +214,8 @@ class HashJoin:
                 if n >= self._DEVICE_MIN_PROBE or \
                         nb >= self._DEVICE_MIN_BUILD:
                     ctx.stats.join_dispatches += 1
-                    li, ri = self._kernel(bk, pk, nb, n)
+                    with sched.device_slot():
+                        li, ri = self._kernel(bk, pk, nb, n)
                 else:
                     ctx.stats.host_match_batches += 1
                     li, ri = host_match_pairs(bk, pk, nb, n)

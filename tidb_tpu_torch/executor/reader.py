@@ -5,8 +5,10 @@ TableReaderExec (executor/__init__.py), the distsql leaf.
 client of `ctx.storage` as one request over the table's record range at
 the statement's snapshot `ctx.read_ts`, and yields each region's partial
 aggregate (a GroupResult) as it arrives; `chunks(ctx)` does the same for
-a scan or selection plan and applies its LIMIT. Left out, with the
-session that owns them: the dirty-transaction fallback through the union
+a scan or selection plan and applies its LIMIT. As a join child it shows
+the `schema` (one SchemaCol per column of `cop.cols`), `col(name)` and
+the `table` name that executor/scan.TableScan shows, so HashJoin takes
+either leaf unchanged. Left out, with the session that owns them: the dirty-transaction fallback through the union
 store (a reader inside a transaction with its own writes) and the query
 feedback to the statistics handle.
 """
@@ -14,6 +16,8 @@ feedback to the statistics handle.
 from __future__ import annotations
 
 from tidb_tpu_torch import codec, tablecodec
+from tidb_tpu_torch.executor.scan import SchemaCol
+from tidb_tpu_torch.expression import ColumnRef
 from tidb_tpu_torch.kv import CopRequest, KVRange, ReqType
 from tidb_tpu_torch.plan.physical import CopPlan
 
@@ -26,6 +30,14 @@ class TableReader:
     def __init__(self, cop: CopPlan, keep_order: bool = False):
         self.cop = cop
         self.keep_order = keep_order
+        self.table = cop.table.name
+        self.schema = [SchemaCol(self.table, c.name, c.ft)
+                       for c in cop.cols]
+
+    def col(self, name: str) -> ColumnRef:
+        """A ColumnRef to this reader's column `name`."""
+        j = next(i for i, c in enumerate(self.schema) if c.name == name)
+        return ColumnRef(j, self.schema[j].ft, name)
 
     def _ranges(self):
         cop = self.cop

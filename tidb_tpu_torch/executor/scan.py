@@ -1,10 +1,12 @@
-"""Table scans over one table's chunks.
+"""Table scans over one table's chunks in hand.
 
 What the JAX package's coprocessor does for a selection-only cop plan
 (store/copr.exec_cop_plan): each chunk of the table is filtered on the
 host, first by the host filter (the string conjuncts), then by the
-pushed filter, with `runtime.eval_filter_host`. The port has no storage
-layer yet, so the chunks come from the run's context (`ctx.tables`).
+pushed filter, with `runtime.eval_filter_host`. The chunks come from the
+run's context (`ctx.tables`): this is the leaf of the chunk path's entry
+points (executor/agg.run_q3 / run_q5). Reads through the store take
+executor/reader.TableReader instead (run_q3_store / run_q5_store).
 """
 
 from __future__ import annotations

@@ -26,9 +26,10 @@ call-site helpers (`consume`, `release`, `track_to`, `op_node`,
 `register_spill`) are no-ops without one, which is how the port's
 operators run when a caller opens no statement.
 
-Left out of the port: `MemTracker.cancel` and `link` (the dispatch
-watchdog and the coprocessor's alias plans, which the port does not
-have yet).
+`MemTracker.cancel` is the dispatch watchdog's latch (sched.py), and a
+statement root's `fault_degraded` flag is sched.degrade_statement's.
+Left out of the port: `link` (the coprocessor's alias plans, which the
+port does not have yet).
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ class MemTracker:
                  "host", "device", "host_peak", "device_peak",
                  "total_peak", "device_at_peak",
                  "_actions", "_firing", "_cancel_msg", "_nodes",
-                 "children")
+                 "children", "fault_degraded")
 
     def __init__(self, label: str, parent: "MemTracker | None" = None,
                  quota: int = 0, on_cancel=None):
@@ -84,6 +85,9 @@ class MemTracker:
         # id(plan) -> (plan, tracker)
         self._nodes: dict[int, tuple] = {}    # guarded-by: _mu
         self.children: dict[int, "MemTracker"] = {}   # guarded-by: _mu
+        # statement roots only: sched.degrade_statement latched this
+        # statement onto the host path after a retried device fault
+        self.fault_degraded = False
 
     # -- the two ledgers -----------------------------------------------------
 
@@ -194,6 +198,24 @@ class MemTracker:
         finally:
             with self._mu:
                 self._firing = False
+
+    def cancel(self, msg: str) -> bool:
+        """Latch a statement cancel from OUTSIDE the quota chain — the
+        dispatch watchdog's door (sched.py): the message latches exactly
+        like a quota cancel (stragglers that later trip the quota
+        re-raise it, never re-count), and the on_cancel hook fires.
+        Never raises — the caller is a monitor thread, not the consuming
+        thread. -> False when a cancel was already latched."""
+        with self._mu:
+            if self._cancel_msg is not None:
+                return False
+            self._cancel_msg = msg
+        if self.on_cancel is not None:
+            try:
+                self.on_cancel(msg)
+            except Exception:  # noqa: BLE001 - monitor must survive
+                pass
+        return True
 
     def run_spill_actions(self, target: int = 0,
                           recurse: bool = False) -> int:

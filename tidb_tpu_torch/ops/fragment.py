@@ -22,10 +22,10 @@ late-materialize exact group-key values from the two source chunks at
 finalize. A pair-capacity overflow regrows inside finalize over the SAME
 device-resident lanes; group capacity and collision misses raise to the
 executor (executor/agg.HashAgg), which escalates once and then falls
-back to the decoded per-batch path.
+back to the decoded per-batch path. `fragment_kernel_for` registers each
+kernel with the kernel-profile plane (profiler.py, family `fragment`).
 
-Left out: the profiler and device-plane hooks of `fragment_kernel_for`
-and the memtrack byte sizing (build_nbytes / dispatch_nbytes).
+Left out: the memtrack byte sizing (build_nbytes / dispatch_nbytes).
 """
 
 from __future__ import annotations
@@ -228,14 +228,28 @@ def fragment_kernel_for(num_keys: int, probe_width: int, width: int,
     direct_limit = config.direct_agg_slots()
     force_hash = capacity > direct_limit and _direct_group_mode(group_exprs)
 
+    from tidb_tpu_torch import profiler
+    made = []
+
     def make():
+        made.append(1)
         return ProbeAggKernel(num_keys, probe_width, width, group_exprs,
                               aggs, capacity=capacity, force_hash=force_hash,
                               direct_limit=direct_limit, device=device)
 
     fp = runtime.plan_fingerprint(None, group_exprs, aggs)
     if fp is None:
-        return make()
+        k = make()
+        prof = profiler.profile("fragment", None)
+        profiler.note_construct(prof, reuse=False)
+        k._profile = prof
+        return k
     key = (fp, num_keys, probe_width, width, capacity, force_hash,
            direct_limit, str(device))
-    return _FRAGMENTS.get_or_create(key, make)
+    k = _FRAGMENTS.get_or_create(key, make)
+    prof = profiler.profile(
+        "fragment", f"{fp}|{num_keys}|{probe_width}|{width}|{capacity}"
+                    f"|{force_hash}|{direct_limit}")
+    profiler.note_construct(prof, reuse=not made)
+    k._profile = prof
+    return k

@@ -735,7 +735,12 @@ def kernel_for(filter_expr, group_exprs, aggs, capacity: int = 4096,
     force_hash = bool(group_exprs) and capacity > direct_limit and \
         _direct_group_mode(group_exprs)
 
+    from tidb_tpu_torch import profiler
+    family = "hashagg" if group_exprs else "scalaragg"
+    made = []
+
     def make():
+        made.append(1)
         if group_exprs:
             return HashAggKernel(filter_expr, group_exprs, aggs,
                                  capacity=capacity, force_hash=force_hash,
@@ -744,10 +749,20 @@ def kernel_for(filter_expr, group_exprs, aggs, capacity: int = 4096,
 
     fp = runtime.plan_fingerprint(filter_expr, group_exprs, aggs)
     if fp is None:
-        return make()
+        k = make()
+        prof = profiler.profile(family, None)
+        profiler.note_construct(prof, reuse=False)
+        k._profile = prof
+        return k
     key = (fp, capacity if group_exprs else 0, force_hash,
            direct_limit if group_exprs else 0, str(device))
-    return _KERNELS.get_or_create(key, make)
+    k = _KERNELS.get_or_create(key, make)
+    # profile rows key on the same identity as the cache slot; a cache
+    # miss (`made` fired) is one construction
+    prof = profiler.profile(family, f"{fp}|{key[1]}|{key[2]}|{key[3]}")
+    profiler.note_construct(prof, reuse=not made)
+    k._profile = prof
+    return k
 
 
 class HashAggregator:

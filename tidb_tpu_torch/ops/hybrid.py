@@ -24,7 +24,9 @@ resident partitions (executor/join.py then stages probe rows for them
 and drains them partition by partition).
 
 Each partition upload, and each partition of the aggregation below, is
-one `join.partition` trace span.
+one `join.partition` trace span; each partition's device attempt and the
+escalated whole-chunk retry hold a scheduler slot (sched.device_slot),
+and a partition's host fallback bills the tenant meter as host time.
 
 Aggregation gets the same treatment via `partitioned_agg`: rows
 radix-partition by group-key hash, each partition re-runs the device
@@ -39,7 +41,7 @@ import threading
 
 import numpy as np
 
-from tidb_tpu_torch import config, memtrack, metrics, trace
+from tidb_tpu_torch import config, memtrack, meter, metrics, sched, trace
 from tidb_tpu_torch.ops import runtime
 from tidb_tpu_torch.ops.hashagg import (CapacityError, CollisionError,
                                         DeviceRejectError, GroupResult,
@@ -573,8 +575,10 @@ def _one_partition_agg(sub, filter_expr, group_exprs, aggs, stats,
     with trace.span("join.partition", rows=sub.num_rows):
         while True:
             try:
-                return kernel_for(filter_expr, group_exprs, aggs,
-                                  capacity=cap, device=device)(sub)
+                k = kernel_for(filter_expr, group_exprs, aggs,
+                               capacity=cap, device=device)
+                with sched.device_slot():
+                    return k(sub)
             except CapacityError as e:
                 nxt = escalated_capacity(getattr(e, "needed", 0))
                 if nxt is None or nxt <= cap:
@@ -588,7 +592,9 @@ def _one_partition_agg(sub, filter_expr, group_exprs, aggs, stats,
                 reason = "unsupported"
                 break
         _note_fallback(stats, reason)
-        return host_hash_agg(sub, filter_expr, group_exprs, aggs)
+        with meter.busy_section("host"), \
+                trace.span("host.fallback", rows=sub.num_rows):
+            return host_hash_agg(sub, filter_expr, group_exprs, aggs)
 
 
 def partitioned_agg(chunk, filter_expr, group_exprs, aggs, stats=None,
@@ -641,8 +647,10 @@ def agg_retry(chunk, filter_expr, group_exprs, aggs, err, stats=None,
         cap = escalated_capacity(getattr(err, "needed", 0))
         if cap is not None:
             try:
-                return kernel_for(filter_expr, group_exprs, aggs,
-                                  capacity=cap, device=device)(chunk)
+                k = kernel_for(filter_expr, group_exprs, aggs,
+                               capacity=cap, device=device)
+                with sched.device_slot():
+                    return k(chunk)
             except (CapacityError, CollisionError) as e2:
                 reason = "collision" if isinstance(e2, CollisionError) \
                     else "capacity"

@@ -107,7 +107,7 @@ def superchunk_batches(chunks, limit: int, tracker=None):
 
 
 def pipeline_map(items, dispatch, finalize, depth: int, tracker=None,
-                 cost=None):
+                 cost=None, profile=None):
     """Depth-N dispatch-ahead map over an item stream: up to `depth`
     dispatched items are in flight before the oldest is finalized, so
     item k+1's host-side prep (padding, packing, the non-blocking copy)
@@ -121,41 +121,136 @@ def pipeline_map(items, dispatch, finalize, depth: int, tracker=None,
 
     With `tracker` and `cost` set, each in-flight item holds cost(item)
     host bytes on the tracker from its dispatch until its finalize
-    returns: the depth-N window is the memory the pipeline pins."""
+    returns: the depth-N window is the memory the pipeline pins.
+
+    `depth` is this STATEMENT's window; the server-wide window belongs
+    to the device scheduler (sched.py): every dispatch takes a global
+    slot first, held until its finalize returns, granted round-robin
+    across concurrent statements. Under contention the pipeline drains
+    its own oldest in-flight token before asking again, and past the
+    scheduler's bypass valve the dispatch proceeds unscheduled, so the
+    global window can throttle but never hang a statement. Each finalize
+    runs under the dispatch watchdog; the enqueue and the readback bill
+    the tenant meter as device (or host-fallback) time; a device fault
+    at dispatch feeds the device-health tracker and propagates.
+
+    With `profile` set (a profiler.KernelProfile), each device token's
+    enqueue interval records as one dispatch and its blocking readback
+    as busy-ns on that profile row."""
+    import time as _time
+
+    from tidb_tpu_torch import meter, profiler, sched, trace
+    from tidb_tpu_torch.util import failpoint
+    scheduler = sched.device_scheduler()
     depth = max(int(depth), 1)
     pending: deque = deque()
     track = tracker is not None and cost is not None
 
+    def _token_kind(tok) -> str:
+        # host-path items: None (the common convention) or an explicit
+        # ("host", ...) token — everything else enqueued device work
+        if tok is None or (isinstance(tok, tuple) and tok and
+                           isinstance(tok[0], str) and tok[0] == "host"):
+            return "host"
+        return "device"
+
     def pop_finalize():
-        prev, tok, held = pending.popleft()
+        prev, seq, tok, held, slot = pending.popleft()
+        kind = _token_kind(tok)
         try:
-            return finalize(prev, tok)
+            # the watchdog bounds the blocking readback: past
+            # tidb_tpu_dispatch_timeout_ms the statement cancels with
+            # the retryable device-fault error, and the finally below
+            # drains the slot and the staged bytes as on any error
+            with sched.finalize_watch("pipeline-finalize"):
+                failpoint.eval("device/finalize")
+                with meter.busy_section(kind), \
+                        trace.span("finalize", superchunk=seq,
+                                   host=int(kind == "host")):
+                    t0p = _time.perf_counter_ns()
+                    out = finalize(prev, tok)
+                    if profile is not None and kind == "device":
+                        profiler.note_busy(
+                            profile, _time.perf_counter_ns() - t0p)
+                    return out
         finally:
+            scheduler.release(slot)
             if held:
                 tracker.release(host=held)
 
+    def acquire_slot(bypass: bool):
+        # the global round-robin slot wait, traced per attempt and billed
+        # to the tenant's slot-wait ledger
+        t0 = _time.perf_counter_ns()
+        try:
+            with trace.span("sched.slot"):
+                return scheduler.acquire_or_bypass() if bypass \
+                    else scheduler.acquire()
+        finally:
+            meter.note_slot_wait(_time.perf_counter_ns() - t0)
+
+    seq = -1
     try:
         for it in items:
+            seq += 1
             while len(pending) >= depth:
                 yield pop_finalize()
+            slot = acquire_slot(False)
+            while slot is None and pending:
+                yield pop_finalize()
+                slot = acquire_slot(False)
+            if slot is None:
+                slot = acquire_slot(True)
             held = cost(it) if track else 0
             if held:
                 tracker.consume(host=held)
             try:
-                tok = dispatch(it)
-            except BaseException:
+                failpoint.eval("device/dispatch")
+                # the enqueue interval meters as device time for device
+                # tokens, host-fallback time for host-path items — the
+                # kind is only known once dispatch() returns
+                busy = meter.busy_section()
+                t0p = _time.perf_counter_ns()
+                with busy, trace.span("dispatch", superchunk=seq):
+                    tok = dispatch(it)
+                    busy.kind = _token_kind(tok)
+                if profile is not None and busy.kind == "device":
+                    profiler.note_dispatch(
+                        profile, _time.perf_counter_ns() - t0p)
+            except BaseException as e:
+                # executor-plane device faults feed the same health
+                # tracker as the coprocessor's sites; the fault itself
+                # propagates (the retry/degrade chain lives there)
+                if isinstance(e, failpoint.DeviceFaultError) and not \
+                        isinstance(e, failpoint.DispatchTimeoutError):
+                    sched.device_health().note_fault()
+                scheduler.release(slot)
                 if held:
                     tracker.release(host=held)
                 raise
-            pending.append((it, tok, held))
+            if tok is None:
+                # host-path item: nothing went to the device — hand the
+                # slot back now instead of across its (host) finalize
+                scheduler.release(slot)
+                slot = None
+            pending.append((it, seq, tok, held, slot))
         while pending:
             yield pop_finalize()
     finally:
+        # a consumer that stops early abandons dispatched tokens: each is
+        # finalized (result discarded) so its slot, its held host bytes
+        # and the device bytes its dispatch charged are released
         while pending:
+            prev, _seq, tok, held, slot = pending.popleft()
             try:
-                pop_finalize()
+                with meter.busy_section(_token_kind(tok)):
+                    finalize(prev, tok)
             except Exception:
                 pass    # abandoned: the result is discarded either way
+            finally:
+                scheduler.release(slot)
+                if held:
+                    tracker.release(host=held)
 
 
 def bucket_size(n: int) -> int:

@@ -144,10 +144,22 @@ def segment_kernel_for(group_exprs, aggs, device=None) -> SegmentAggKernel:
     exprs are not device-safe."""
     device = runtime.resolve_device(device)
 
+    from tidb_tpu_torch import profiler
+    made = []
+
     def make():
+        made.append(1)
         return SegmentAggKernel(group_exprs, aggs, device=device)
 
     fp = runtime.plan_fingerprint(None, group_exprs, aggs)
     if fp is None:
-        return make()
-    return _SEG_KERNELS.get_or_create((fp, str(device)), make)
+        k = make()
+        prof = profiler.profile("streamagg", None)
+        profiler.note_construct(prof, reuse=False)
+        k._profile = prof
+        return k
+    k = _SEG_KERNELS.get_or_create((fp, str(device)), make)
+    prof = profiler.profile("streamagg", fp)
+    profiler.note_construct(prof, reuse=not made)
+    k._profile = prof
+    return k

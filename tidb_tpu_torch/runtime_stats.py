@@ -6,7 +6,9 @@ one statement, `collecting()` installs it on a thread (the coprocessor
 re-installs it in every pool worker, like the sysvar overlay), and the
 `note_*` call sites record cop tasks, superchunks, fallbacks (also
 counted on `tidb_tpu_device_fallback_total{op,reason}`), encoding and
-execution modes and bytes touched against the issuing plan node.
+execution modes, bytes touched (also the tenant meter's bytes ledger)
+and the kernel-profile feed (`note_kernel`, called from
+profiler.note_dispatch) against the issuing plan node.
 
 Device time is recorded only for a collector made with `device=True`
 (the reference builds it so under `tidb_tpu_runtime_stats_device`, a
@@ -18,9 +20,8 @@ timing serializes the reader with the card. `device_watermark` reads
 
 Left out, with the executor tree, the session and the profiler that need
 them: `instrument` (wrapping an executor's methods) with the rows, loops
-and host time it records, `link`/`seal`/`suspended`, the kernel-profile
-feed (`note_kernel`), the pipeline-stall notes, the rendering helpers,
-and the tenant meter's share of `note_bytes_touched`.
+and host time it records, `link`/`seal`/`suspended`, the pipeline-stall
+notes and the rendering helpers.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import time
 __all__ = ["OpStats", "StatsCollector", "collecting", "current",
            "device_section", "note_superchunk", "note_cop_tasks",
            "note_fallback", "note_encoding", "note_bytes_touched",
-           "note_mode", "device_watermark"]
+           "note_mode", "note_kernel", "device_watermark"]
 
 _tl = threading.local()
 
@@ -64,13 +65,14 @@ def device_watermark() -> int:
 class OpStats:
     """One physical operator's actuals for one statement execution (the
     counters the coprocessor path records; the reference's OpStats also
-    carries the executor wrappers' rows/loops/time and the kernel
-    profile's feed, which the port does not have yet)."""
+    carries the executor wrappers' rows/loops/time, which the port does
+    not have yet)."""
 
     __slots__ = ("name", "device_time_ns", "cop_tasks", "superchunks",
                  "coalesced_chunks", "superchunk_fill_rows",
                  "superchunk_bucket_rows", "fallbacks", "fallback_reasons",
-                 "encoding", "mode")
+                 "encoding", "mode", "kernel_family", "kernel_compile",
+                 "kernel_bytes", "kernel_busy_ns", "kernel_dispatches")
 
     def __init__(self, name: str):
         self.name = name
@@ -93,6 +95,14 @@ class OpStats:
         # execution mode that actually ran: "" = nothing noted, else one
         # of direct | hash | hybrid | host
         self.mode = ""
+        # kernel-profile feed (profiler.py): which kernel family served
+        # this operator, its first-dispatch attribution, and the bytes,
+        # busy time and dispatches its profile rows recorded here
+        self.kernel_family = ""
+        self.kernel_compile = ""
+        self.kernel_bytes = 0
+        self.kernel_busy_ns = 0
+        self.kernel_dispatches = 0
 
     def fill_ratio(self) -> float:
         """Live rows over padded bucket rows (0.0 when no superchunks)."""
@@ -128,6 +138,11 @@ class StatsCollector:
     def get(self, plan) -> OpStats | None:
         ent = self._nodes.get(id(plan))
         return ent[1] if ent is not None else None
+
+    def ops(self) -> list[OpStats]:
+        """The OpStats of every plan node noted, insertion order."""
+        with self._lock:
+            return [st for _plan, st in self._nodes.values()]
 
     def note_device(self, plan, elapsed_ns: int) -> None:
         st = self.node(plan)
@@ -174,6 +189,19 @@ class StatsCollector:
         st = self.node(plan)
         with self._lock:
             st.mode = mode
+
+    def note_kernel(self, plan, family: str, compile_src: str,
+                    nbytes: int, busy_ns: int) -> None:
+        """Fold one kernel dispatch's profile slice onto the operator.
+        May arrive from cop pool workers, hence the lock."""
+        st = self.node(plan)
+        with self._lock:
+            st.kernel_family = family
+            if compile_src:
+                st.kernel_compile = compile_src
+            st.kernel_bytes += nbytes
+            st.kernel_busy_ns += busy_ns
+            st.kernel_dispatches += 1
 
 
 @contextlib.contextmanager
@@ -231,10 +259,23 @@ def note_bytes_touched(decoded_equiv: int, encoded: int) -> None:
     actually staged/read (dict codes + validity at the padded bucket),
     `decoded_equiv` is what the same input would occupy decoded into
     wide host vectors — the auditable compression win, the per-query
-    bytes_touched figure."""
-    from tidb_tpu_torch import metrics
+    bytes_touched figure. Also the per-tenant bytes ledger's single
+    chokepoint (meter.py)."""
+    from tidb_tpu_torch import meter, metrics
     metrics.counter(metrics.BYTES_DECODED_EQUIV, inc=decoded_equiv)
     metrics.counter(metrics.BYTES_ENCODED, inc=encoded)
+    meter.note_bytes(encoded, decoded_equiv)
+
+
+def note_kernel(plan, family: str, compile_src: str, nbytes: int,
+                busy_ns: int) -> None:
+    """Record a kernel dispatch's profile slice against the active
+    collector (no-op without one): called from profiler.note_dispatch,
+    so every instrumented seam feeds both the process-wide registry row
+    and the statement's per-operator view with one call."""
+    coll = getattr(_tl, "coll", None)
+    if coll is not None and plan is not None:
+        coll.note_kernel(plan, family, compile_src, nbytes, busy_ns)
 
 
 def note_fallback(plan, reason: str) -> None:

@@ -155,6 +155,17 @@ class ChunkCache:
                 _k, (_v, _t, _ch, sz) = self._entries.popitem(last=False)
                 self._bytes -= sz
 
+    def restamp(self, key, fill_ts: int, new_ts: int) -> bool:
+        """Advance an entry's fill snapshot from `fill_ts` to `new_ts`
+        (the delta merge, for a region no write touched in between);
+        False when the entry is gone or was re-filled meanwhile."""
+        with self._mu:
+            ent = self._entries.get(key)
+            if ent is None or ent[1] != fill_ts:
+                return False
+            self._entries[key] = (ent[0], new_ts, ent[2], ent[3])
+            return True
+
     def drop(self, key, if_chunk=None) -> None:
         """Remove one entry (delta-staleness invalidation: an index
         scan whose table took index-key commits, or a base whose

@@ -10,13 +10,20 @@ data, fused over an HBM-resident block when the device cache holds one
 
 The control flow is the reference's: the encoded attempt for a string
 filter, then the decoded retry; a capacity or collision miss goes to
-ops/hybrid.agg_retry; a device fault retries once, then the host path
-serves with the reason `fault`; every fallback counts under its reason.
-The kernels run on the storage's device (`storage.device`). Left out,
-with the modules not ported yet: the dispatch slot of the global device
-scheduler and its device-health gate (sched.py), the chip scope of a
-multi-chip plane (devplane.py), the kernel-profile sections (profiler.py)
-and the tenant meter (meter.py).
+ops/hybrid.agg_retry; every fallback counts under its reason. Each
+dispatch runs under the device plane as in the reference: a scheduler
+slot (sched.device_slot) with the dispatch watchdog, the chip scope
+(devplane.chip_scope), the statement's device ledger, the runtime-stats
+device section and the kernel-profile section (profiler.py). A device
+fault retries once through the store Backoffer, then latches the
+statement onto the host path (`fault`); three consecutive faults
+quarantine the device (sched.DeviceHealth), and until its re-probe every
+task is served on the host (`quarantine`). Host work bills the tenant
+meter (meter.py), which rides into every pool and stream worker with
+the sysvar overlay, the tracker and the stats collector. The kernels
+run on the storage's device (`storage.device`). One deviation: a fault
+that quarantines the device is not retried (the reference retries it,
+and the retry re-fills the HBM block the quarantine just shed).
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from tidb_tpu_torch import config, kv, memtrack, runtime_stats, trace
+from tidb_tpu_torch import (config, devplane, kv, memtrack, meter,
+                            profiler, runtime_stats, sched, trace)
 from tidb_tpu_torch.kv import (CopRequest, CopResponse, KVRange,
                                NotLeaderError, RegionError, ServerBusyError,
                                KeyLockedError)
@@ -192,21 +200,34 @@ class _PlanFallbacks:
         runtime_stats.note_fallback(self.plan, reason)
 
 
-def _dispatch_finalize(plan, k, chunk, block, nbytes, device):
+def _dispatch_finalize(plan, k, chunk, block, nbytes, moved, device):
     """One device dispatch and its readback — fused over `block`'s
-    resident columns when one is given — with the statement's device
-    ledger holding `nbytes` across both (the pool worker's tracker routes
-    the charge to the issuing reader's node)."""
+    resident columns when one is given — under a scheduler slot and the
+    dispatch watchdog, the chip scope, the statement's device ledger
+    holding `nbytes` across both (the pool worker's tracker routes the
+    charge to the issuing reader's node), the runtime-stats device
+    section and the kernel-profile section (success-only, as in the
+    reference: a capacity miss's wall must not bill the profile row the
+    retry bills again)."""
     dev_cols = None
+    decoded = memtrack.chunk_bytes(chunk)
     if block is not None:
         dev_cols = block.cols
         chunk = _block_rows(chunk, block)
     failpoint.eval("device/dispatch")
-    with memtrack.device_scope(plan, nbytes), \
+    with sched.device_slot() as slot, \
+            devplane.chip_scope(slot.chip, device), \
+            memtrack.device_scope(plan, nbytes), \
             runtime_stats.device_section(plan, errors=False,
-                                         device=device):
-        with trace.span("dispatch", rows=chunk.num_rows):
+                                         device=device), \
+            profiler.dispatch_section(
+                profiler.profile_of(k), nbytes=nbytes, encoded=moved,
+                decoded=decoded, plan=plan):
+        with trace.span("dispatch", rows=chunk.num_rows, chip=slot.chip):
             pending = k.dispatch(chunk, dev_cols=dev_cols)
+        # the sync path's blocking readback seam: inside the
+        # watchdog-guarded slot, so an armed delay here exercises the
+        # timeout -> retryable-cancel path
         failpoint.eval("device/finalize")
         with trace.span("finalize"):
             return k.finalize(chunk, pending)
@@ -260,12 +281,15 @@ def _encoded_agg(plan: CopPlan, chunk, sources: int, dev_ref,
         else:
             moved = memtrack.device_put_bytes(chunk)
             nbytes = k.dispatch_nbytes(chunk)
-        res = _dispatch_finalize(plan, k, chunk, block, nbytes, device)
+        res = _dispatch_finalize(plan, k, chunk, block, nbytes, moved,
+                                 device)
+        sched.device_health().note_ok()
     except failpoint.DispatchTimeoutError:
-        raise       # statement already cancel-latched
+        raise       # statement already cancel-latched by the watchdog
     except DeviceFaultError:
         # device-plane fault: the decoded retry below owns the
-        # retry/degrade bookkeeping
+        # retry/degrade bookkeeping — just record the fault here
+        sched.device_health().note_fault()
         return None
     except (CapacityError, CollisionError, DeviceRejectError,
             NotImplementedError):
@@ -301,9 +325,33 @@ def exec_cop_plan(plan: CopPlan, chunk, sources: int = 1,
     block on the device (store/delta.py)."""
     from tidb_tpu_torch.ops.runtime import resolve_device
     device = resolve_device(device)
+    # one health-gate evaluation per call, shared by the encoded and
+    # decoded device attempts: the quarantine probe admission is a
+    # consumable token, and the fault/quarantine fallback must count
+    # once per logical dispatch, not once per attempted path
+    health_ok = None
+
+    def _health_gate() -> bool:
+        nonlocal health_ok
+        if health_ok is None:
+            if sched.statement_degraded():
+                # a retried device fault already latched this
+                # statement onto the host path
+                runtime_stats.note_fallback(plan, "fault")
+                health_ok = False
+            elif not sched.device_health().available():
+                # device quarantined after repeated faults; the host
+                # path serves until the re-probe readmits it
+                runtime_stats.note_fallback(plan, "quarantine")
+                health_ok = False
+            else:
+                health_ok = True
+        return health_ok
+
     if plan.host_filter is not None:
         if (plan.is_agg and config.encoded_exec_enabled() and
-                chunk.num_rows >= config.device_min_rows()):
+                chunk.num_rows >= config.device_min_rows() and
+                _health_gate()):
             resp = _encoded_agg(plan, chunk, sources, dev_ref, device)
             if resp is not None:
                 return resp
@@ -316,7 +364,8 @@ def exec_cop_plan(plan: CopPlan, chunk, sources: int = 1,
         if plan.is_agg:
             runtime_stats.note_encoding(plan, "decoded")
     if plan.is_agg:
-        use_device = chunk.num_rows >= config.device_min_rows()
+        use_device = chunk.num_rows >= config.device_min_rows() and \
+            _health_gate()
         retried = False
         while use_device:
             try:
@@ -333,7 +382,8 @@ def exec_cop_plan(plan: CopPlan, chunk, sources: int = 1,
                     moved = memtrack.device_put_bytes(chunk)
                     nbytes = k.dispatch_nbytes(chunk)
                 res = _dispatch_finalize(plan, k, chunk, block, nbytes,
-                                         device)
+                                         moved, device)
+                sched.device_health().note_ok()
                 if plan.host_filter is None:
                     runtime_stats.note_encoding(plan, _agg_mode(plan, k))
                 runtime_stats.note_mode(
@@ -347,12 +397,21 @@ def exec_cop_plan(plan: CopPlan, chunk, sources: int = 1,
                         bucket_size(max(chunk.num_rows, 1)), sources)
                 return CopResponse(chunk=res)
             except failpoint.DispatchTimeoutError:
+                # the watchdog already cancel-latched the statement:
+                # retrying is futile, the cancel must surface
                 raise
             except DeviceFaultError as e:
                 # device-plane fault (injected or real — HBM fill,
                 # dispatch): retry ONCE through the store Backoffer,
-                # then serve this task on the host path
-                if not retried:
+                # then degrade this statement to the host path and let
+                # the quarantine logic decide whether the device keeps
+                # taking other statements' work
+                health = sched.device_health()
+                health.note_fault()
+                # a fault that just quarantined the device is not
+                # retried: the retry would refill the HBM block the
+                # quarantine shed (the JAX package retries it)
+                if not retried and not health.snapshot()["quarantined"]:
                     retried = True
                     trace.event("device.retry")
                     try:
@@ -360,7 +419,10 @@ def exec_cop_plan(plan: CopPlan, chunk, sources: int = 1,
                     except BackoffExhausted:
                         pass
                     continue
+                sched.degrade_statement()
                 runtime_stats.note_fallback(plan, "fault")
+                profiler.note_kernel_fallback(profiler.profile_of(k),
+                                              "fault")
                 break
             except (CapacityError, CollisionError) as e:
                 if plan.group_exprs:
@@ -368,6 +430,7 @@ def exec_cop_plan(plan: CopPlan, chunk, sources: int = 1,
                     # per radix partition (ops/hybrid.py) — the device
                     # is abandoned per PARTITION, never per operator
                     from tidb_tpu_torch.ops.hybrid import agg_retry
+                    profiler.note_escalation(profiler.profile_of(k))
                     runtime_stats.note_mode(plan, "hybrid")
                     return CopResponse(chunk=agg_retry(
                         chunk, plan.filter, plan.group_exprs, plan.aggs,
@@ -375,6 +438,8 @@ def exec_cop_plan(plan: CopPlan, chunk, sources: int = 1,
                 reason = "collision" if isinstance(e, CollisionError) \
                     else "capacity"
                 runtime_stats.note_fallback(plan, reason)
+                profiler.note_kernel_fallback(profiler.profile_of(k),
+                                              reason)
                 break
             except (DeviceRejectError, NotImplementedError):
                 # designed rejection (not device-safe). A bare
@@ -384,7 +449,10 @@ def exec_cop_plan(plan: CopPlan, chunk, sources: int = 1,
                 break
         runtime_stats.note_encoding(plan, "decoded")
         runtime_stats.note_mode(plan, "host")
-        with trace.span("host.fallback", rows=chunk.num_rows):
+        # host-path agg time is its own attribution phase: on the trace
+        # AND on the tenant's host-fallback ledger (meter.py)
+        with meter.busy_section("host"), \
+                trace.span("host.fallback", rows=chunk.num_rows):
             if plan.group_exprs:
                 return CopResponse(chunk=host_hash_agg(
                     chunk, plan.filter, plan.group_exprs, plan.aggs))
@@ -738,6 +806,7 @@ class CopClient(kv.Client):
         # reader node that issued them
         overlay = config.current_overlay()
         mem_root = memtrack.current()
+        res_meter = meter.current()
         tspan = trace.propagate()
         # consumer-gone signal, checked between tasks: teardown signals
         # it and then JOINS the pool (the copIterator.Close
@@ -753,6 +822,7 @@ class CopClient(kv.Client):
             with config.session_overlay(overlay), \
                     runtime_stats.collecting(coll), \
                     memtrack.tracking(mem_root), \
+                    meter.metering(res_meter), \
                     trace.attached(tspan):
                 with trace.span("copr.task"):
                     return list(self._run_task(rq, rng))
@@ -770,7 +840,8 @@ class CopClient(kv.Client):
                 with config.session_overlay(overlay), \
                         runtime_stats.collecting(coll), \
                         memtrack.tracking(mem_root), \
-                            trace.attached(tspan):
+                        meter.metering(res_meter), \
+                        trace.attached(tspan):
                     for _loc, rng in task_list:
                         if stop.is_set():   # consumer gone: stop at the
                             break           # next task boundary
@@ -913,6 +984,7 @@ class CopClient(kv.Client):
         overlay = config.current_overlay()
         coll = runtime_stats.current()
         mem_root = memtrack.current()
+        res_meter = meter.current()
         tspan = trace.propagate()
         buckets = [tasks[i::concurrency] for i in range(concurrency)]
 
@@ -921,7 +993,8 @@ class CopClient(kv.Client):
                 with config.session_overlay(overlay), \
                         runtime_stats.collecting(coll), \
                         memtrack.tracking(mem_root), \
-                            trace.attached(tspan), \
+                        meter.metering(res_meter), \
+                        trace.attached(tspan), \
                         trace.span("copr.stream", tasks=len(task_list)):
                     for _loc, rng in task_list:
                         if stop.is_set():
@@ -970,6 +1043,7 @@ class CopClient(kv.Client):
         overlay = config.current_overlay()
         coll = runtime_stats.current()
         mem_root = memtrack.current()
+        res_meter = meter.current()
         tspan = trace.propagate()
         pool = ThreadPoolExecutor(max_workers=concurrency,
                                   thread_name_prefix="cop-stream-ord")
@@ -982,7 +1056,8 @@ class CopClient(kv.Client):
                     with config.session_overlay(overlay), \
                             runtime_stats.collecting(coll), \
                             memtrack.tracking(mem_root), \
-                                    trace.attached(tspan), \
+                            meter.metering(res_meter), \
+                            trace.attached(tspan), \
                             trace.span("copr.stream"):
                         for resp in self._run_task_stream(
                                 req, rng, new_counter()):

@@ -2,11 +2,14 @@
 concurrent OLTP writes.
 
 The port's copy of the JAX package's store/delta.py (numpy, no device
-work of its own). Two seams differ: a triggered merge runs on a plain
-background thread (`join()` waits for it) where the reference runs a
-supervised one-shot with restarts (util/supervisor.py, not ported), and
-the merge re-fills HBM blocks without a scheduler dispatch slot
-(sched.py is not ported).
+work of its own): a triggered merge runs as a supervised one-shot with
+counted restarts (util/supervisor.run_once) on a background thread that
+`join()` waits for, and re-fills HBM blocks under a scheduler dispatch
+slot (sched.device_slot). One deviation: a merge re-stamps a cached
+region block that took no write since its fill (the journal window
+holds nothing for its range) at the merge's target in both caches,
+where the reference drops it and the next read re-scans the region
+cold.
 
 Before this module, HTAP was read-only in practice: ANY committed write
 bumped the engine's data_version and wholesale-invalidated both the
@@ -54,7 +57,6 @@ serve-time `locked_in_range` veto, not by this module.
 from __future__ import annotations
 
 import bisect
-import logging
 import threading
 import weakref
 from collections import OrderedDict
@@ -68,7 +70,6 @@ from tidb_tpu_torch.util import failpoint
 __all__ = ["DeltaStore", "PendingDelta", "STALE", "tracker",
            "record_handles"]
 
-log = logging.getLogger("tidb_tpu_torch.store")
 
 # pending() answer when the journal was truncated below the asked
 # window: the entry can no longer be patched forward — drop it and
@@ -448,20 +449,19 @@ class DeltaStore:
                     trigger = "ratio"
                     break
         if trigger is not None:
-            # a merge that raises leaves the journal as it was; the next
-            # ingest past the threshold triggers another
-            t = threading.Thread(target=self._merge_quietly,
-                                 name="delta-merge", args=(trigger,),
-                                 daemon=True)
+            # supervised one-shot (util/supervisor.py): a merge that
+            # crashes (device fault mid-refill, injected delta/merge
+            # failpoint) retries with counted backoff instead of leaving
+            # the journal to grow unmerged; one that gives up leaves the
+            # journal as it was, and the next ingest triggers another
+            from tidb_tpu_torch.util import supervisor
+            t = threading.Thread(
+                target=supervisor.run_once, name="delta-merge",
+                args=("delta-merge", lambda: self.merge(trigger)),
+                daemon=True)
             with self._mu:
                 self._bg = [b for b in self._bg if b.is_alive()] + [t]
             t.start()
-
-    def _merge_quietly(self, trigger: str) -> None:
-        try:
-            self.merge(trigger)
-        except Exception:   # noqa: BLE001 - background: serving stays exact
-            log.warning("delta merge (%s) failed", trigger, exc_info=True)
 
     def join(self, timeout: float | None = None) -> None:
         """Wait for the background merges this store started."""
@@ -532,6 +532,14 @@ class DeltaStore:
                 continue
             memo = self.best_memo(chunk)
             if memo is None or memo[0] <= fill_ts:
+                if self.pending(tid, key[6], key[7], fill_ts,
+                                target) is None:
+                    # no write landed in the region since its fill: the
+                    # entry is the region at `target` too (the JAX
+                    # package drops it, re-colding the region)
+                    if cc.restamp(key, fill_ts, target):
+                        floors.append(target)
+                    continue
                 # cold since the writes landed: re-colding it is honest
                 cc.drop(key)
                 continue
@@ -540,6 +548,7 @@ class DeltaStore:
             promoted[key] = (w, merged)
             floors.append(w)
         if dc is not None:
+            from tidb_tpu_torch import sched
             for dkey, dv, fill_ts in dc.snapshot_table(tid):
                 if dv != dv_now:
                     dc.drop(dkey)
@@ -549,11 +558,22 @@ class DeltaStore:
                     continue
                 pro = promoted.get(dkey[0])
                 if pro is None:
-                    dc.drop(dkey)
+                    ck = dkey[0]
+                    if self.pending(tid, ck[6], ck[7], fill_ts,
+                                    target) is None and \
+                            dc.restamp(dkey, fill_ts, target):
+                        # untouched region: the resident block stays
+                        floors.append(target)
+                    else:
+                        dc.drop(dkey)
                     continue
                 w, merged = pro
+                # re-fill under a dispatch slot: merge uploads compete
+                # with serving through the same global window instead
+                # of starving it
                 dc.drop(dkey)
-                dc.fill(dkey, dv, w, merged)
+                with sched.device_slot():
+                    dc.fill(dkey, dv, w, merged)
                 floors.append(w)
         floor = min(floors, default=target)
         retain = config.delta_retain_ms()

@@ -608,6 +608,18 @@ class DeviceCache:
         self._settle()
         return freed
 
+    def restamp(self, key, fill_ts: int, new_ts: int) -> bool:
+        """Advance a resident block's fill snapshot from `fill_ts` to
+        `new_ts` without touching the device (the delta merge, for a
+        region no write touched in between); False when the entry is
+        gone or was patched or re-filled meanwhile."""
+        with self._mu:
+            ent = self._entries.get(key)
+            if ent is None or ent[1] != fill_ts:
+                return False
+            self._entries[key] = (ent[0], new_ts, ent[2])
+            return True
+
     def snapshot_table(self, table_id: int) -> list:
         """[(key, fill_version, fill_ts)] for every resident block of
         one table — the delta merge walks this to refresh lagging
