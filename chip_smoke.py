@@ -67,6 +67,19 @@ Phases, one JSON line each:
           sync-debug "error"; the patch's device program (B11) is timed
           by CUDA events, the whole patch by the host clock; the
           hbm-cache ledger node returns to 0 at shed()
+  sql     TPC-H Q1, Q3 and Q5 as SQL text through the port's Session
+          (tidb_tpu_torch.session) at SF 1 (STORE_SF, or --sf where
+          smaller): CREATE DATABASE tpch, USE tpch, tpch.load (the DDL
+          through the DDL and meta layers, lineitem and orders in 4
+          regions); Q1 cold, warm (HBM fill) and hot, then Q3 and Q5
+          cold and warm with the materialized coprocessor; each equal to
+          its numpy truth as the session formats it, with the seconds of
+          each run, its parse/plan/execute/format split and the load's
+          seconds; the phase asserts the segment-sum kernel launched in
+          every run, the hot Q1 read 4 HBM hits and no host->device
+          byte, Q3's lineitem join took the hybrid path, Q5's fragment
+          dispatched fused, no fallback, and every statement's ledger at
+          0 after it
   faults  the device plane under injected faults, on Q1 from a store of
           its own at SF 0.1 (CHECK_SF) on one fan-out thread: a dispatch
           fault once (retried on the card, no fallback), then in every
@@ -81,7 +94,8 @@ Phases, one JSON line each:
           dtypes, masks and shapes (checked before q1); then, at every
           shape the cold Q1 run, the first Q3 and Q5 runs, the Q18 run,
           the store's cold, first warm and patched runs and its cold Q3
-          and Q5 runs gave it (their calls recorded by
+          and Q5 runs, and the sql phase's cold and warm Q1 and cold Q3
+          and Q5 gave it (their calls recorded by
           segsum_bench.record_calls),
           held again on those
           very inputs and timed: device time beside its host time per
@@ -134,6 +148,10 @@ STORE_SF = 1.0
 # (the host chunks' dictionary encodes, a block's first-patch position
 # map) must not land ahead of the timed runs
 CHECK_SF = 0.1
+# The sql phase's hot Q1 runs this many rounds of (SQL, run_q1_store) in
+# turn over one storage, so that its cost over the store path is told
+# apart from the host clock's run-to-run spread
+HOT_ROUNDS = 7
 
 
 def emit(obj) -> None:
@@ -1045,6 +1063,209 @@ def store_query_runs(args, dev, storage, d, recorded) -> dict:
     return out
 
 
+def sql_phase(args, dev, recorded) -> dict:
+    """TPC-H Q1, Q3 and Q5 as SQL text through the port's Session at
+    min(--sf, STORE_SF): CREATE DATABASE, USE and tpch.load (the DDL
+    through the DDL and meta layers, lineitem and orders in 4 regions),
+    then Q1 cold, warm (HBM fill) and hot, and Q3 and Q5 cold and warm
+    with the materialized coprocessor (SET @@tidb_tpu_copr_stream = 0,
+    as store_query_runs). Every result equals the numpy truth formatted
+    as the session formats it; every run launched the segment-sum kernel
+    (the count set to 0 just before the statement and read just after),
+    fell back nowhere (operators and coprocessor) and left its
+    statement's ledger at 0; the hot Q1 read 4 HBM hits and no
+    host->device byte; Q3's lineitem join took the hybrid path; Q5's
+    fragment dispatched fused. The cold runs' and the warm Q1's
+    segment_sum calls go to recorded["sql-*"]."""
+    from tidb_tpu_torch import metrics
+    from tidb_tpu_torch.benchmarks import segsum_bench, tpch
+    from tidb_tpu_torch.ops import runtime, segsum
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.store import device_cache
+    from tidb_tpu_torch.store.storage import new_mock_storage
+    sf = min(args.sf, STORE_SF)
+    d = tpch.ScaledTpch(sf, args.seed)
+    storage = new_mock_storage(device=dev)
+    sess = Session(storage)
+    ledgers = {}
+
+    def statement(sql):
+        res = sess.execute(sql)
+        ledgers[sql] = sess.last_mem_left
+        if sess.last_mem_left:
+            raise AssertionError(f"sql {sql!r}: the statement's ledger "
+                                 f"still holds {sess.last_mem_left} B")
+        return res
+
+    statement("CREATE DATABASE tpch")
+    statement("USE tpch")
+    t0 = time.perf_counter()
+    loaded = tpch.load(sess, storage, d)
+    load_s = time.perf_counter() - t0
+    if sess.last_mem_left:
+        raise AssertionError("sql load: the last DDL statement's ledger "
+                             f"holds {sess.last_mem_left} B")
+    regions = 4
+    out = {"phase": "sql", "sf": sf, "seed": args.seed,
+           "rows_loaded": loaded, "load_s": load_s, "regions": regions,
+           "runs": {}}
+
+    def counter(name):
+        return sum(v for k, v in metrics.snapshot().items()
+                   if k == name or k.startswith(name + "{"))
+
+    def run(name, label, record=False):
+        where = f"sql {name} {label}"
+        truth = tpch.as_session_rows(
+            name, {"q1": tpch.q1_truth, "q3": tpch.q3_truth,
+                   "q5": tpch.q5_truth}[name](d))
+        hits0 = counter(metrics.HBM_CACHE_HITS)
+        misses0 = counter(metrics.HBM_CACHE_MISSES)
+        put0 = runtime.put_bytes()
+        torch.cuda.synchronize()
+        with (segsum_bench.record_calls() if record
+              else contextlib.nullcontext()) as rec:
+            segsum.launches = 0
+            t0 = time.perf_counter()
+            res = sess.query(getattr(tpch, name.upper()))
+            seconds = time.perf_counter() - t0
+            launches = segsum.launches
+        if rec is not None:
+            recorded[f"sql-{name}-{label}"] = recorded_path(where, rec,
+                                                            launches)
+        st, coll = sess.last_stats, sess.last_collector
+        if coll is None:
+            raise AssertionError(f"{where}: the session kept no "
+                                 "runtime-stats collector")
+        op_fallbacks = {op.name: op.fallback_reasons for op in coll.ops()
+                        if op.fallbacks}
+        if res.rows != truth:
+            raise AssertionError(f"{where}: rows differ from the numpy "
+                                 f"truth:\n{res.rows}\n{truth}")
+        if launches <= 0:
+            raise AssertionError(f"{where}: segment-sum kernel never "
+                                 "launched")
+        if st.fallbacks or op_fallbacks:
+            raise AssertionError(f"{where}: fallbacks "
+                                 f"{st.fallback_reasons} {op_fallbacks}")
+        if sess.last_mem_left or st.mem_left:
+            raise AssertionError(f"{where}: the statement's ledger still "
+                                 f"holds {sess.last_mem_left} B")
+        got = {"seconds": seconds,
+               "phases_ms": {k: v / 1e6
+                             for k, v in sess.last_phases.items()},
+               "hbm_hits": counter(metrics.HBM_CACHE_HITS) - hits0,
+               "hbm_misses": counter(metrics.HBM_CACHE_MISSES) - misses0,
+               "h2d_bytes": runtime.put_bytes() - put0,
+               "segsum_launches": launches, "join_paths": st.join_paths,
+               "fused_dispatches": st.fused_dispatches,
+               "hybrid_tasks": st.hybrid_tasks,
+               "ledger_peak": st.mem_peak, "ledger_left": st.mem_left}
+        out["runs"][f"{name}_{label}"] = got
+        return got
+
+    run("q1", "cold", record=True)
+    warm = run("q1", "warm", record=True)
+    if warm["hbm_misses"] != regions:
+        raise AssertionError(f"sql q1 warm: expected {regions} HBM fills, "
+                             f"{warm}")
+    hot = run("q1", "hot")
+    if hot["hbm_hits"] != regions or hot["hbm_misses"] or hot["h2d_bytes"]:
+        raise AssertionError(f"sql q1 hot: expected {regions} HBM hits and "
+                             f"no host->device byte, {hot}")
+    out["q1_hot_against_store"] = hot_q1_against_store(
+        sess, storage, d, regions, counter)
+    statement("SET @@tidb_tpu_copr_stream = 0")
+    for name in ("q3", "q5"):
+        cold = run(name, "cold", record=True)
+        run(name, "warm")
+        if name == "q3" and cold["join_paths"].get("lineitem") != "hybrid":
+            raise AssertionError(f"sql q3: the lineitem join took "
+                                 f"{cold['join_paths']}, not the hybrid "
+                                 "path")
+        if name == "q5" and not cold["fused_dispatches"]:
+            raise AssertionError(f"sql q5: no fused dispatch, {cold}")
+    out["explain"] = {name: [r[0] for r in sess.query(
+        "EXPLAIN " + getattr(tpch, name.upper())).rows]
+        for name in ("q1", "q3", "q5")}
+    node = device_cache.tracker()
+    sess.close()
+    storage.close()
+    out["hbm_resident_after_shed"] = node.device
+    if node.device:
+        raise AssertionError(f"sql: the hbm-cache node holds {node.device} "
+                             "B after shed")
+    return out
+
+
+def hot_q1_against_store(sess, storage, d, regions, counter) -> dict:
+    """Hot Q1 as SQL against run_q1_store over the same storage and the
+    same HBM blocks (run_q1_store reads the TableInfo that CREATE TABLE
+    made), HOT_ROUNDS rounds in turn, each run held to the truth, 4 HBM
+    hits and no host->device byte; then one more run of each under
+    cProfile, whose port functions by their own time show where the SQL
+    path's extra host time goes (on the profiling thread: the
+    coprocessor's pool workers are not in it)."""
+    import cProfile
+    import pstats
+    from tidb_tpu_torch import metrics
+    from tidb_tpu_torch.benchmarks import tpch
+    from tidb_tpu_torch.executor.agg import run_q1_store
+    from tidb_tpu_torch.ops import runtime
+    lineitem = sess.domain.info_schema().table("tpch", "lineitem")
+    raw = tpch.q1_truth(d)
+    truth = {"sql": tpch.as_session_rows("q1", raw), "store": raw}
+
+    def sql():
+        t0 = time.perf_counter()
+        rows = sess.query(tpch.Q1).rows
+        return rows, time.perf_counter() - t0
+
+    def store():
+        res = run_q1_store(storage=storage, lineitem=lineitem)
+        return res.rows, res.seconds
+
+    def once(side, fn):
+        hits0 = counter(metrics.HBM_CACHE_HITS)
+        put0 = runtime.put_bytes()
+        torch.cuda.synchronize()
+        rows, seconds = fn()
+        hits = counter(metrics.HBM_CACHE_HITS) - hits0
+        if rows != truth[side]:
+            raise AssertionError(f"sql hot q1 ({side}): rows differ from "
+                                 "the numpy truth")
+        if hits != regions or runtime.put_bytes() != put0:
+            raise AssertionError(f"sql hot q1 ({side}): {hits} HBM hits, "
+                                 f"{runtime.put_bytes() - put0} H->D bytes")
+        return seconds
+
+    out = {"rounds": HOT_ROUNDS, "sql_s": [], "sql_execute_ms": [],
+           "sql_front_end_ms": [], "store_s": []}
+    for _ in range(HOT_ROUNDS):
+        out["sql_s"].append(once("sql", sql))
+        ph = sess.last_phases
+        out["sql_execute_ms"].append(ph["execute"] / 1e6)
+        out["sql_front_end_ms"].append(
+            (ph["parse"] + ph["plan"] + ph["format"]) / 1e6)
+        out["store_s"].append(once("store", store))
+    for side, fn in (("sql", sql), ("store", store)):
+        py = cProfile.Profile()
+        py.enable()
+        try:
+            once(side, fn)
+        finally:
+            py.disable()
+        top = sorted(((tt, n, f"{os.path.basename(f)}:{line}:{name}")
+                      for (f, line, name), (_cc, n, tt, _ct, _c)
+                      in pstats.Stats(py).stats.items()
+                      if f"{os.sep}tidb_tpu_torch{os.sep}" in f),
+                     reverse=True)
+        out[f"{side}_profile_self_ms"] = [
+            {"function": k[:80], "calls": n, "self_ms": tt * 1e3}
+            for tt, n, k in top[:15]]
+    return out
+
+
 def kernel_profile() -> dict:
     """The kernel-profile registry (tidb_tpu_torch.profiler) as the
     process's runs left it: per kernel family and plan, dispatches, busy
@@ -1269,6 +1490,7 @@ def main() -> int:
     emit(q18_phase(args, dev, d, tables, recorded))
     del d, tables
     emit(store_phase(args, dev, recorded))
+    emit(sql_phase(args, dev, recorded))
     emit(faults_phase(args, dev))
 
     # the kernel at every shape the three paths gave it, on their own

@@ -1,8 +1,9 @@
 """The port stands alone: tidb_tpu_torch imports neither jax nor
-tidb_tpu (by AST scan of every module, the storage path's and the device
-plane's included, and by sys.modules after CPU runs of Q1, Q18's inner
-block, and Q1, Q3 and Q5 through the store under the device plane, in a
-fresh process), and its entry points run on CUDA unless told otherwise,
+tidb_tpu (by AST scan of every module, the storage path's, the device
+plane's and the SQL stack's included, and by sys.modules after CPU runs
+of Q1, Q18's inner block, Q1, Q3 and Q5 through the store under the
+device plane, and Q1 as SQL through the port's Session, in a fresh
+process), and its entry points run on CUDA unless told otherwise,
 raising where there is none instead of quietly running on the CPU."""
 
 import ast
@@ -45,6 +46,19 @@ def test_no_forbidden_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+# the subpackages of the SQL stack, each scanned by the test above
+SQL_STACK = ("parser", "plan", "ddl", "meta", "structure", "session",
+             "ranger", "schema", "statistics", "expression", "executor")
+
+
+@pytest.mark.parametrize("sub", SQL_STACK)
+def test_sql_stack_subpackage_is_scanned(sub):
+    mods = sorted((PKG / sub).rglob("*.py"))
+    assert (PKG / sub / "__init__.py") in mods
+    for m in mods:
+        assert not [n for n in _imports(m) if _forbidden(n)], m
+
+
 def test_chip_smoke_imports_no_jax():
     bad = [m for m in _imports(ROOT / "chip_smoke.py") if _forbidden(m)]
     assert not bad
@@ -78,6 +92,16 @@ assert supervisor.run_once("probe", lambda: None)
 assert sched.stats()["scheduler"]["grants"] > 0
 assert meter.server_snapshot()["device_ns"] > 0
 assert profiler.snapshot() and devplane.ndev() == 1
+from tidb_tpu_torch.session import Session
+from tidb_tpu_torch.store.storage import new_mock_storage
+sst = new_mock_storage(device="cpu")
+sess = Session(sst)
+sess.execute("CREATE DATABASE tpch")
+sess.execute("USE tpch")
+tpch.load(sess, sst, d)
+assert sess.query(tpch.Q1).rows == \
+    tpch.as_session_rows("q1", tpch.q1_truth(d))
+assert sess.last_stats.segsum_launches == 0 and sess.last_mem.total() == 0
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))))
 """
@@ -107,6 +131,7 @@ def test_entry_points_default_to_cuda():
     from tidb_tpu_torch.executor.agg import (run_agg, run_q1, run_q1_store,
                                              run_q3, run_q3_store, run_q5,
                                              run_q5_store, run_q18_inner)
+    from tidb_tpu_torch.session import Session
     from tidb_tpu_torch.store import copr
     from tidb_tpu_torch.store.device_cache import DeviceCache
     from tidb_tpu_torch.store.storage import new_mock_storage
@@ -140,6 +165,7 @@ def test_entry_points_default_to_cuda():
         lambda: run_q3_store(sf=0.002),
         lambda: run_q5_store(sf=0.002),
         lambda: new_mock_storage(),
+        lambda: Session(new_mock_storage()),
         lambda: DeviceCache(),
         lambda: copr.exec_cop_plan(tpch.q1_cop_plan(
             tpch.table_infos()["lineitem"]), ch),

@@ -3,14 +3,20 @@
 The numpy generator is a copy of the JAX package's
 benchmarks/tpch.ScaledTpch with the same draw order, so one `seed` gives
 the same tables in both packages. Row counts follow the TPC-H spec's
-cardinalities (sf=1 ~ 6M lineitem rows). Where the JAX package ingests
-the tables through its storage layer and SQL front end, the port (which
-has neither yet) builds each table's scan chunks directly, in the JAX
-package's DDL column order, and carries the plans that the JAX planner
-builds: for Q1 the partial aggregation it pushes to the coprocessor, for
-Q3 and Q5 the left-deep join trees (build side = right child) under one
-HashAgg, with their host tails (TopN, Sort) as plain functions, and for
-Q18's inner block the StreamAgg the planner picks after ANALYZE.
+cardinalities (sf=1 ~ 6M lineitem rows).
+
+The SQL path is the JAX package's: `load(session, storage, d)` runs
+`DDL` through the session (CREATE TABLE through the DDL and meta layers)
+and bulk-ingests the tables into the store, and `Q1`/`Q3`/`Q5` are the
+query texts a `Session.query` plans and runs. Beside it stay the
+hand-built paths of the earlier slices: each table's scan chunks built
+directly in the DDL's column order (`table_chunks`), the TableInfos the
+DDL makes (`table_infos`, `load_store`), and the plans that the JAX
+planner builds: for Q1 the partial aggregation it pushes to the
+coprocessor, for Q3 and Q5 the left-deep join trees (build side = right
+child) under one HashAgg, with their host tails (TopN, Sort) as plain
+functions, and for Q18's inner block the StreamAgg the planner picks
+after ANALYZE.
 
 Overflow: Q1's sum_charge lane is scaled by 10^6; at sf 10 one group's
 sum comes to about 1.5e18, under int64's 9.2e18. At sf 100 it would
@@ -29,7 +35,9 @@ from tidb_tpu_torch.sqltypes import (FieldType, TypeCode, date_to_micros,
                                      new_datetime_field, new_decimal_field,
                                      new_int_field, parse_datetime)
 
-__all__ = ["ScaledTpch", "Q1", "Q3", "Q5", "TABLE_COLUMNS", "TABLE_IDS",
+__all__ = ["ScaledTpch", "DDL", "load", "as_session_rows", "Q1", "Q3",
+           "Q5", "TABLE_COLUMNS",
+           "TABLE_IDS",
            "table_infos", "load_store", "q1_cop_plan", "q1_truth_of",
            "WriteBatch", "write_batch", "commit_batch", "Q1Mirror",
            "LINEITEM_COLUMNS", "QUERY_TABLES", "PLANS", "table_chunks",
@@ -104,6 +112,51 @@ class ScaledTpch:
         self.l_shipdate = base + rng.integers(1, 122, lineitems)
         self.l_commitdate = base + rng.integers(30, 92, lineitems)
         self.l_receiptdate = self.l_shipdate + rng.integers(1, 31, lineitems)
+
+
+DDL = """
+CREATE TABLE region (r_regionkey BIGINT PRIMARY KEY, r_name VARCHAR(25));
+CREATE TABLE nation (n_nationkey BIGINT PRIMARY KEY, n_name VARCHAR(25),
+                     n_regionkey BIGINT);
+CREATE TABLE customer (c_custkey BIGINT PRIMARY KEY,
+                       c_nationkey BIGINT, c_mktsegment VARCHAR(10));
+CREATE TABLE supplier (s_suppkey BIGINT PRIMARY KEY, s_nationkey BIGINT);
+CREATE TABLE orders (o_orderkey BIGINT PRIMARY KEY, o_custkey BIGINT,
+                     o_orderdate DATE, o_shippriority BIGINT,
+                     o_orderpriority VARCHAR(15));
+CREATE TABLE lineitem (l_id BIGINT PRIMARY KEY, l_orderkey BIGINT,
+                       l_suppkey BIGINT,
+                       l_quantity DECIMAL(15,2),
+                       l_extendedprice DECIMAL(15,2),
+                       l_discount DECIMAL(15,2), l_tax DECIMAL(15,2),
+                       l_returnflag CHAR(1), l_linestatus CHAR(1),
+                       l_shipdate DATE, l_commitdate DATE,
+                       l_receiptdate DATE);
+"""
+
+
+def load(session, storage, d: "ScaledTpch",
+         regions_per_table: int = 4) -> int:
+    """The JAX package's tpch.load: `DDL` through `session` (in its
+    current database), bulk ingest of the six tables into `storage`,
+    then the region pre-split of lineitem and orders. -> total rows
+    loaded."""
+    from tidb_tpu_torch.table import Table, bulkload
+    for stmt in DDL.strip().split(";"):
+        if stmt.strip():
+            session.execute(stmt)
+    ischema = session.domain.info_schema()
+    db = session.current_db
+    infos = {name: ischema.table(db, name) for name in _LOAD_ORDER}
+    total = 0
+    for name in _LOAD_ORDER:
+        total += bulkload.bulk_load(storage, Table(infos[name], storage),
+                                    _load_columns(d, name))
+    cluster = storage.cluster
+    for name in ("lineitem", "orders"):
+        cluster.split_table(infos[name].id, regions_per_table,
+                            max_handle=d.counts[name])
+    return total
 
 
 Q1 = """
@@ -574,6 +627,31 @@ def q5_truth(d: ScaledTpch) -> list[tuple]:
         if sel.any():
             rows.append((NATIONS[k][0], int(rev[sel].sum(dtype=np.int64))))
     return q5_finish(rows)
+
+
+# per query, how each column of a truth row is formatted the way a
+# Session returns it: a decimal's frac, "date" for epoch micros, None
+# for a value as it is
+_SQL_FORMATS = {"q1": (None, None, 2, 2, 4, 6, 6, 6, 6, None),
+                "q3": (None, 4, "date", None),
+                "q5": (None, 4)}
+
+
+def as_session_rows(name: str, rows) -> list[tuple]:
+    """Truth rows of query `name` (q1_truth, q3_truth, q5_truth: scaled
+    decimals, epoch-micro dates) as `Session.query(...).rows` gives
+    them: decimals as Decimal, dates as 'YYYY-MM-DD' strings."""
+    from tidb_tpu_torch.sqltypes import format_datetime, scaled_to_decimal
+
+    def one(v, fmt):
+        if fmt is None:
+            return v
+        if fmt == "date":
+            return format_datetime(int(v), TypeCode.DATE)
+        return scaled_to_decimal(int(v), fmt)
+
+    return [tuple(one(v, f) for v, f in zip(r, _SQL_FORMATS[name]))
+            for r in rows]
 
 
 # query -> (plan builder, host tail) for executor/agg.run_q3 / run_q5

@@ -1,7 +1,10 @@
-"""The sysvars the port's kernels and its storage path read.
+"""The sysvars the port's kernels, its storage path, its planner and its
+session read.
 
 A subset of the JAX package's registry, with the same names, types and
-defaults, so one setting means the same thing in both packages. Values
+defaults, so one setting means the same thing in both packages.
+`SET [GLOBAL] @@tidb_tpu_x = v` in a session writes through `coerce` and
+`set_var` (GLOBAL) or the session's overlay. Values
 come from the defaults, then from the environment (TIDB_TPU_SUPERCHUNK_ROWS
 and so on), then from `set_var`; `session_overlay` shadows them on one
 thread for a statement's duration, and `current_overlay` hands a
@@ -24,7 +27,13 @@ __all__ = ["get_var", "set_var", "session_overlay", "current_overlay",
            "direct_agg_slots", "join_partitions", "skew_threshold",
            "sort_spill_rows", "mem_quota_query", "sched_inflight",
            "sched_inflight_bytes", "dispatch_timeout_ms", "kernel_profile",
-           "kernel_profile_cap", "UnknownVariableError"]
+           "kernel_profile_cap", "device_enabled",
+           "is_known", "coerce",
+           "SERVER_VERSION", "UnknownVariableError"]
+
+# the version string the reference's server reports (VERSION(), the
+# @@version sysvar); the port has no server of its own yet
+SERVER_VERSION = "8.0.11-tidb-tpu-1.0"
 
 
 class UnknownVariableError(Exception):
@@ -34,6 +43,9 @@ class UnknownVariableError(Exception):
 _BOOL, _INT = "bool", "int"
 
 _DEFS: dict[str, tuple[str, int]] = {
+    # master switch for the device kernels; 0 = the numpy host path
+    # everywhere (the session's SET @@tidb_tpu_device = 0)
+    "tidb_tpu_device": (_BOOL, 1),
     # columnar region-chunk cache on the storage side (store/chunk_cache)
     "tidb_tpu_chunk_cache": (_BOOL, 1),
     # coprocessor fan-out worker count
@@ -181,6 +193,23 @@ def set_var(name: str, value) -> None:
         raise UnknownVariableError(name)
     with _lock:
         _vals[key] = _coerce(_DEFS[key][0], value)
+
+
+def is_known(name: str) -> bool:
+    return name.lower() in _DEFS
+
+
+def coerce(name: str, value) -> int:
+    """Validate + normalize a value for a known variable (raises
+    UnknownVariableError / ValueError)."""
+    key = name.lower()
+    if key not in _DEFS:
+        raise UnknownVariableError(name)
+    return _coerce(_DEFS[key][0], value)
+
+
+def device_enabled() -> bool:
+    return bool(_read("tidb_tpu_device"))
 
 
 def device_min_rows() -> int:

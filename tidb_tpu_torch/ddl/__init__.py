@@ -1,0 +1,285 @@
+"""DDL: statement validation + job construction (the API half).
+
+The port's copy of the JAX package's ddl/__init__.py for CREATE/DROP
+DATABASE and CREATE/DROP TABLE, run to the end by the in-process worker
+(one process is the only owner: no election, no remote wait). ALTER
+TABLE, CREATE/DROP INDEX, TRUNCATE and RENAME raise "not ported yet".
+
+Reference: TiDB's ddl/ddl_api.go (validation + job build),
+ddl/ddl.go:406 doDDLJob (enqueue, then wait for the owner's worker to
+finish the job). Statements validate against the current schema, enqueue a
+`Job`, and drive the in-process worker (ddl/worker.py) until the job
+reaches history — so the session API is synchronous while the metadata
+walks the full F1 state machine, one schema version per transition, with
+every intermediate state visible to concurrent sessions.
+"""
+
+from __future__ import annotations
+
+from tidb_tpu_torch import kv
+from tidb_tpu_torch.ddl.job import Job, JobType
+from tidb_tpu_torch.errcode import not_ported
+from tidb_tpu_torch.ddl.worker import DDLWorker, JobFailed
+from tidb_tpu_torch.meta import Meta
+from tidb_tpu_torch.parser import ast
+from tidb_tpu_torch.schema.model import (ColumnInfo, DBInfo, IndexInfo,
+                                         TableInfo)
+from tidb_tpu_torch.sqltypes import EvalType, Flag
+from tidb_tpu_torch.table import Table  # noqa: F401  (re-export for callers)
+
+__all__ = ["DDLError", "DDL", "DDLExecutor", "build_table_info"]
+
+
+class DDLError(kv.KVError):
+    pass
+
+
+# DDL statements the reference runs and the port does not yet: the
+# column and index jobs, TRUNCATE and RENAME
+_UNPORTED = ("TruncateTableStmt", "RenameTableStmt", "CreateIndexStmt",
+             "DropIndexStmt", "AlterTableStmt")
+
+
+class DDL:
+    """Validates a DDL statement, enqueues its job(s), runs the worker."""
+
+    def __init__(self, storage, worker: DDLWorker | None = None):
+        self.storage = storage
+        self.worker = worker or DDLWorker(storage)
+
+    def execute(self, stmt: ast.StmtNode, current_db: str,
+                domain=None) -> None:
+        m = getattr(self, "_build_" + type(stmt).__name__, None)
+        if m is None:
+            if type(stmt).__name__ in _UNPORTED:
+                raise DDLError(not_ported(type(stmt).__name__))
+            raise DDLError(f"unsupported DDL {type(stmt).__name__}")
+        # one process is the only owner: each job runs here, to the end
+        # (the reference's owner election and remote wait are not ported)
+        for build in m(stmt, current_db):
+            job = self._enqueue(build)
+            if job is None:
+                continue
+            try:
+                self.worker.run_job(job.id)
+            except JobFailed as e:
+                raise DDLError(str(e)) from None
+
+    def _enqueue(self, build) -> Job | None:
+        """Run `build(meta) -> Job|None` and enqueue in one meta txn."""
+        txn = self.storage.begin()
+        try:
+            meta = Meta(txn)
+            job = build(meta)
+            if job is None:
+                txn.rollback()
+                return None
+            job.id = meta.gen_global_id()
+            meta.enqueue_job(job)
+            txn.commit()
+            return job
+        except Exception:
+            if txn.valid:
+                txn.rollback()
+            raise
+
+    # -- helpers -------------------------------------------------------------
+
+    @staticmethod
+    def _find_db(meta: Meta, name: str) -> DBInfo:
+        for db in meta.list_databases():
+            if db.name.lower() == name.lower():
+                return db
+        raise DDLError(f"Unknown database '{name}'")
+
+    @staticmethod
+    def _find_table(meta: Meta, db_id: int, name: str):
+        for t in meta.list_tables(db_id):
+            if t.name.lower() == name.lower():
+                return t
+        return None
+
+    def _resolve(self, meta: Meta, ts: ast.TableSource, current_db: str):
+        dbn = ts.db or current_db
+        if not dbn:
+            raise DDLError("No database selected")
+        db = self._find_db(meta, dbn)
+        return db, self._find_table(meta, db.id, ts.name)
+
+    def _must_resolve(self, meta: Meta, ts, current_db):
+        db, t = self._resolve(meta, ts, current_db)
+        if t is None:
+            raise DDLError(f"table '{ts.name}' doesn't exist")
+        return db, t
+
+    # -- databases -----------------------------------------------------------
+
+    def _build_CreateDatabaseStmt(self, stmt, _db):
+        def build(meta: Meta):
+            for db in meta.list_databases():
+                if db.name.lower() == stmt.name.lower():
+                    if stmt.if_not_exists:
+                        return None
+                    raise DDLError(f"database '{stmt.name}' exists")
+            return Job(tp=JobType.CREATE_SCHEMA,
+                       schema_id=meta.gen_global_id(),
+                       args={"name": stmt.name})
+        return [build]
+
+    def _build_DropDatabaseStmt(self, stmt, _db):
+        def build(meta: Meta):
+            for db in meta.list_databases():
+                if db.name.lower() == stmt.name.lower():
+                    return Job(tp=JobType.DROP_SCHEMA, schema_id=db.id)
+            if stmt.if_exists:
+                return None
+            raise DDLError(f"database '{stmt.name}' doesn't exist")
+        return [build]
+
+    # -- tables --------------------------------------------------------------
+
+    def _build_CreateTableStmt(self, stmt, current_db):
+        def build(meta: Meta):
+            db, existing = self._resolve(meta, stmt.table, current_db)
+            if existing is not None:
+                if stmt.if_not_exists:
+                    return None
+                raise DDLError(f"table '{stmt.table.name}' exists")
+            if stmt.like_table is not None:
+                # CREATE TABLE a LIKE b: clone b's schema with fresh ids
+                # (ref: ddl_api.go CreateTableWithLike)
+                _sdb, src = self._must_resolve(meta, stmt.like_table,
+                                               current_db)
+                info = TableInfo.from_json(src.to_json())   # deep copy
+                info.id = meta.gen_global_id()
+                info.name = stmt.table.name
+                info.auto_inc_id = 0
+            else:
+                info = build_table_info(meta, stmt)
+            return Job(tp=JobType.CREATE_TABLE, schema_id=db.id,
+                       table_id=info.id, args={"table": info.to_json()})
+        return [build]
+
+    def _build_DropTableStmt(self, stmt, current_db):
+        builders = []
+        for ts in stmt.tables:
+            def build(meta: Meta, ts=ts):
+                db, t = self._resolve(meta, ts, current_db)
+                if t is None:
+                    if stmt.if_exists:
+                        return None
+                    raise DDLError(f"table '{ts.name}' doesn't exist")
+                return Job(tp=JobType.DROP_TABLE, schema_id=db.id,
+                           table_id=t.id)
+            builders.append(build)
+        return builders
+
+
+# Back-compat alias: the session layer predates the job-based front-end.
+DDLExecutor = DDL
+
+
+# MySQL's cap (ref: types/mydecimal.go, 65 digits via 9-digit words).
+# p<=18 rides the scaled-int64 device lane; wider columns use exact
+# scaled python ints on the host object lane (FieldType.is_wide_decimal)
+MAX_DECIMAL_DIGITS = 65
+
+
+def _check_column_type(cd) -> None:
+    from tidb_tpu_torch.sqltypes import TypeCode
+    if cd.ft.tp == TypeCode.NEWDECIMAL:
+        if cd.ft.flen > MAX_DECIMAL_DIGITS:
+            raise DDLError(
+                f"column '{cd.name}': DECIMAL({cd.ft.flen},{cd.ft.frac}) "
+                f"exceeds the supported precision "
+                f"({MAX_DECIMAL_DIGITS} digits)")
+        if cd.ft.frac > cd.ft.flen:
+            raise DDLError(
+                f"column '{cd.name}': scale {cd.ft.frac} > "
+                f"precision {cd.ft.flen}")
+
+
+def build_table_info(meta: Meta, stmt: ast.CreateTableStmt) -> TableInfo:
+    info = TableInfo(id=meta.gen_global_id(), name=stmt.table.name)
+    names = set()
+    # table-level default collation applies to string columns without an
+    # explicit COLLATE (ref: util/charset; only _bin and _general_ci are
+    # implemented — docs/DEVIATIONS.md)
+    table_coll = (stmt.options or {}).get("collate", "").lower()
+    for i, cd in enumerate(stmt.columns):
+        if cd.name.lower() in names:
+            raise DDLError(f"duplicate column '{cd.name}'")
+        names.add(cd.name.lower())
+        _check_column_type(cd)
+        ft = cd.ft
+        if table_coll and ft.eval_type == EvalType.STRING and \
+                not getattr(cd, "explicit_collation", False):
+            import dataclasses
+            ft = dataclasses.replace(ft, collation=table_coll)
+        default = _const_default(cd) if cd.has_default else None
+        info.columns.append(ColumnInfo(
+            id=i + 1, name=cd.name, offset=i, ft=ft, default=default,
+            has_default=cd.has_default or not cd.ft.not_null,
+            auto_increment=cd.auto_increment, comment=cd.comment))
+    info.max_column_id = len(stmt.columns)
+
+    # primary key: inline or table-level
+    pk_cols: list[str] = [cd.name for cd in stmt.columns if cd.is_primary]
+    idx_id = 0
+    for idef in stmt.indexes:
+        if idef.primary:
+            pk_cols = pk_cols or idef.columns
+            if idef.columns != pk_cols:
+                raise DDLError("multiple primary keys")
+    if len(pk_cols) == 1:
+        pkc = info.col_by_name(pk_cols[0])
+        if pkc is not None and pkc.ft.eval_type == EvalType.INT:
+            info.pk_is_handle = True
+            info.pk_col_name = pkc.name
+            pkc.ft = pkc.ft.with_flags(Flag.PRI_KEY | Flag.NOT_NULL)
+    if pk_cols and not info.pk_is_handle:
+        idx_id += 1
+        info.indexes.append(IndexInfo(id=idx_id, name="PRIMARY",
+                                      columns=pk_cols, unique=True,
+                                      primary=True))
+    for cd in stmt.columns:
+        if cd.is_unique:
+            idx_id += 1
+            info.indexes.append(IndexInfo(id=idx_id, name=cd.name,
+                                          columns=[cd.name], unique=True))
+    for idef in stmt.indexes:
+        if idef.primary:
+            continue
+        idx_id += 1
+        info.indexes.append(IndexInfo(
+            id=idx_id, name=idef.name or "_".join(idef.columns),
+            columns=idef.columns, unique=idef.unique))
+    info.max_index_id = idx_id
+    for idx in info.indexes:
+        for cn in idx.columns:
+            if info.col_by_name(cn) is None:
+                raise DDLError(f"Unknown column '{cn}' in index")
+    return info
+
+
+def _const_default(cd: ast.ColumnDef):
+    d = cd.default
+    if d is None:
+        return None
+    if isinstance(d, ast.Literal):
+        v = d.value
+        if v is not None and cd.ft.eval_type == EvalType.DATETIME and \
+                isinstance(v, str):
+            from tidb_tpu_torch import sqltypes as st
+            return st.parse_datetime(v)
+        return v
+    # DEFAULT CURRENT_TIMESTAMP[()] / NOW() on time columns: stored as
+    # a sentinel, evaluated at each insert (ref: ddl_api.go
+    # setDefaultValue + types CurrentTimestamp handling)
+    name = d.name.upper() if isinstance(d, (ast.ColName,
+                                            ast.FuncCall)) else ""
+    if name in ("CURRENT_TIMESTAMP", "NOW", "LOCALTIME",
+                "LOCALTIMESTAMP") and \
+            cd.ft.eval_type == EvalType.DATETIME:
+        return "CURRENT_TIMESTAMP"
+    raise DDLError("only literal defaults supported")

@@ -3,15 +3,35 @@
 Operators take a context (`ExecContext`) in `chunks(ctx)`, as the JAX
 package's executors do: here it carries the device the run's kernels go
 to, the table chunks the scans read (or the storage and the snapshot ts
-the table readers of executor/reader.py read through), and the run's
-counters (ExecStats).
+the table readers of executor/reader.py read through), the session's
+transaction, and the run's counters (ExecStats).
+
+`build_executor` lowers a physical plan (plan/physical.py) onto these
+operators: executor/builder.py holds the lowering per plan node, and the
+root operators the SELECT and INSERT paths need (executor/root.py,
+executor/write.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-__all__ = ["ExecStats", "ExecContext"]
+from tidb_tpu_torch import kv
+
+__all__ = ["ExecStats", "ExecContext", "ExecError", "build_executor"]
+
+
+class ExecError(kv.KVError):
+    pass
+
+
+def build_executor(plan):
+    """The operator tree that runs physical plan `plan` (ref:
+    executorBuilder.build, builder.go:62-146). A plan node whose
+    executor the port lacks raises ExecError ("... is not ported
+    yet")."""
+    from tidb_tpu_torch.executor.builder import build
+    return build(plan)
 
 
 @dataclass
@@ -59,10 +79,18 @@ class ExecStats:
 class ExecContext:
     """What one run's operators share: the device, the scans' tables
     (table name -> list of Chunks), the counters, and for readers over
-    the store the storage and the statement's snapshot ts."""
+    the store the storage and the statement's snapshot ts; a session
+    statement adds its transaction (writes and dirty reads; None for an
+    autocommit read) and its interrupt probe (KILL QUERY)."""
 
     device: object
     tables: dict = field(default_factory=dict)
     stats: ExecStats = field(default_factory=ExecStats)
     storage: object = None
     read_ts: int = 0
+    txn: object = None
+    interrupted: object = None
+
+    def check_interrupt(self) -> None:
+        if self.interrupted is not None and self.interrupted():
+            raise ExecError("Query execution was interrupted")

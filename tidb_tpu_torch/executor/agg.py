@@ -48,9 +48,9 @@ import numpy as np
 
 from tidb_tpu_torch import config, memtrack, profiler, sched
 from tidb_tpu_torch.chunk import Chunk, Column
-from tidb_tpu_torch.executor import ExecContext, ExecStats
+from tidb_tpu_torch.errcode import not_ported
+from tidb_tpu_torch.executor import ExecContext, ExecError, ExecStats
 from tidb_tpu_torch.executor.join import HashJoin
-from tidb_tpu_torch.executor.scan import SchemaCol
 from tidb_tpu_torch.expression import AggFunc
 from tidb_tpu_torch.ops import runtime, segsum
 from tidb_tpu_torch.ops.fragment import fragment_kernel_for
@@ -61,6 +61,7 @@ from tidb_tpu_torch.ops.hostagg import host_hash_agg, host_scalar_agg
 from tidb_tpu_torch.ops.hybrid import escalated_capacity, partitioned_agg
 from tidb_tpu_torch.ops.join import host_match_pairs
 from tidb_tpu_torch.ops.streamagg import segment_kernel_for
+from tidb_tpu_torch.plan.resolver import SchemaCol
 from tidb_tpu_torch.sqltypes import np_dtype_for, object_fill
 
 __all__ = ["Q1Result", "QueryResult", "StoreResult", "HashAgg",
@@ -259,16 +260,18 @@ class HashAgg:
         agg = HashAggregator(self.aggs, self.group_exprs)
         tracked = 0
         try:
-            if not all(not a.distinct for a in self.aggs):
-                # DISTINCT aggregates run on the host by design
+            if not all(not a.distinct for a in self.aggs) or \
+                    not config.device_enabled():
+                # DISTINCT aggregates run on the host by design, and
+                # everything does with tidb_tpu_device = 0
                 source = (host_hash_agg(chunk, None, self.group_exprs,
                                         self.aggs)
                           for chunk in self.child.chunks(ctx)
                           if chunk.num_rows)
             elif not config.superchunk_rows():
-                raise NotImplementedError(
+                raise ExecError(not_ported(
                     "per-chunk device aggregation (tidb_tpu_superchunk_rows"
-                    " = 0) is not ported yet")
+                    " = 0)"))
             else:
                 frag = self._fragment_kernel(ctx)
                 source = self._fused_partials(ctx, frag) \
@@ -327,8 +330,8 @@ class HashAgg:
         if nb == 0:
             return      # inner join over an empty build: no input rows
         tracked = memtrack.track_to(self, memtrack.chunk_bytes(build))
-        enc, bk = join._fit_build(build)
-        engage, hot, h = join._hybrid_engage(bk, nb)
+        enc, bk, raw_bk = join._fit_build(build)
+        engage, hot, h = join._hybrid_engage(bk, nb, raw_bk)
         if engage:
             # the keys, hashes and hot set just computed ride along
             try:
@@ -414,9 +417,9 @@ class HashAgg:
 
 
 def _agg_schema(group_exprs, aggs):
-    return [SchemaCol("", getattr(g, "name", "") or f"_g{i}", g.ft)
+    return [SchemaCol(getattr(g, "name", "") or f"_g{i}", "", g.ft)
             for i, g in enumerate(group_exprs)] + \
-        [SchemaCol("", a.name or f"_a{i}", a.result_ft)
+        [SchemaCol(a.name or f"_a{i}", "", a.result_ft)
          for i, a in enumerate(aggs)]
 
 
@@ -472,7 +475,8 @@ class StreamAgg:
         device = runtime.resolve_device(ctx.device)
         stats = ctx.stats
         agg = HashAggregator(self.aggs, self.group_exprs)
-        use_device = all(not a.distinct for a in self.aggs)
+        use_device = config.device_enabled() and \
+            all(not a.distinct for a in self.aggs)
         slice_rows = config.superchunk_rows() or self._SLICE
         parts = self._parts(ctx, slice_rows)
         tracked = 0
@@ -627,7 +631,7 @@ class StoreResult:
 
 
 def run_q1_store(sf: float = 1.0, seed: int = 42, device=None,
-                 storage=None) -> StoreResult:
+                 storage=None, lineitem=None) -> StoreResult:
     """TPC-H Q1 served from the mock TiKV store on `device` (CUDA unless
     the caller asks for another): a TableReader's cop request over
     lineitem's regions at a fresh snapshot, each region's partial
@@ -636,13 +640,16 @@ def run_q1_store(sf: float = 1.0, seed: int = 42, device=None,
     HashAggregator as run_q1 merges its superchunks. Without `storage`
     a store is made on `device` and ScaledTpch(sf, seed) bulk-loaded
     into it (lineitem and orders in 4 regions each); pass the `storage`
-    of an earlier result to run again over the same store. The run is
-    one statement: a memtrack root and a runtime-stats collector."""
+    of an earlier result to run again over the same store, and with it
+    `lineitem`, the TableInfo to read, where the store was loaded
+    through a Session (the one CREATE TABLE made; by default the
+    hand-built `tpch.table_infos()`'s). The run is one statement: a
+    memtrack root and a runtime-stats collector."""
     from tidb_tpu_torch import runtime_stats
     from tidb_tpu_torch.benchmarks import tpch
     from tidb_tpu_torch.executor.reader import TableReader
     storage = _store_of(sf, seed, device, storage)
-    cop = tpch.q1_cop_plan(tpch.table_infos()["lineitem"])
+    cop = tpch.q1_cop_plan(lineitem or tpch.table_infos()["lineitem"])
     ctx = ExecContext(storage.device, storage=storage,
                       read_ts=storage.current_ts())
     coll = runtime_stats.StatsCollector()

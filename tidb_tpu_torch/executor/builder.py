@@ -1,0 +1,147 @@
+"""Lowering of physical plans (plan/physical.py) onto the port's
+operators: the port of the JAX package's executor builder
+(executor/__init__.py, build_executor and _BUILDERS; ref:
+executorBuilder.build, builder.go:62-146).
+
+The reference's executors read their plan node; the port's operators
+take the node's fields as arguments, so each builder below carries every
+field the reference's executor reads: a HashJoin gets its keys, join
+type, other condition and the planner's probe-side CMSketch
+(`probe_cms`, the hybrid join's heavy-hitter seed); a HashAgg over a
+plain inner HashJoin fuses probe and partial aggregation per probe
+superchunk (executor/agg.py). The plan's output schema (a list of
+plan/resolver.SchemaCol) becomes the operator's `schema`.
+
+The index readers, the index and merge joins, Apply, Union and the
+UPDATE/DELETE executors have no port yet: building one raises ExecError
+("... is not ported yet").
+"""
+
+from __future__ import annotations
+
+from tidb_tpu_torch.errcode import not_ported
+from tidb_tpu_torch.executor import ExecError
+from tidb_tpu_torch.executor.agg import HashAgg, StreamAgg
+from tidb_tpu_torch.executor.join import HashJoin
+from tidb_tpu_torch.executor.reader import TableReader
+from tidb_tpu_torch.executor.root import (FinalAgg, Limit, PointGet,
+                                          Projection, Selection, Sort, TopN,
+                                          Values)
+from tidb_tpu_torch.executor.write import Insert
+from tidb_tpu_torch.plan import physical as ph
+
+__all__ = ["build"]
+
+# plan nodes the reference executes and the port does not yet
+_UNPORTED = (ph.PhysIndexReader, ph.PhysIndexLookUp, ph.PhysIndexJoin,
+             ph.PhysMergeJoin, ph.PhysApply, ph.PhysUnion, ph.PhysUpdate,
+             ph.PhysDelete, ph.PhysMultiUpdate, ph.PhysMultiDelete)
+
+
+def build(plan):
+    b = _BUILDERS.get(type(plan))
+    if b is not None:
+        return b(plan)
+    name = type(plan).__name__.removeprefix("Phys")
+    if isinstance(plan, _UNPORTED):
+        raise ExecError(not_ported(f"the {name} executor"))
+    raise ExecError(f"no executor for {type(plan).__name__}")
+
+
+def _cols(plan) -> list:
+    return list(plan.schema.cols)
+
+
+def _table_reader(p: ph.PhysTableReader):
+    op = TableReader(p.cop, keep_order=p.keep_order)
+    op.schema = _cols(p)
+    return op
+
+
+def _point_get(p: ph.PhysPointGet):
+    return PointGet(p.table, p.cols, p.handle_col, p.handle, p.index,
+                    p.index_values, p.filter, _cols(p))
+
+
+def _values(p: ph.PhysValues):
+    return Values(p.rows, _cols(p))
+
+
+def _final_agg(p: ph.PhysFinalAgg):
+    return FinalAgg(build(p.children[0]), p.aggs, p.num_group_cols,
+                    _cols(p))
+
+
+def _hash_agg(p: ph.PhysHashAgg):
+    op = HashAgg(build(p.children[0]), p.group_exprs, p.aggs)
+    op.schema = _cols(p)
+    return op
+
+
+def _stream_agg(p: ph.PhysStreamAgg):
+    op = StreamAgg(build(p.children[0]), p.group_exprs, p.aggs,
+                   sorted_input=p.sorted_input)
+    op.schema = _cols(p)
+    return op
+
+
+def _hash_join(p: ph.PhysHashJoin):
+    if not p.left_keys:
+        # the reference's HashJoinExec runs a keyless join as a cross
+        # join (_cross_join)
+        raise ExecError(not_ported("the cross join"))
+    op = HashJoin(build(p.children[0]), build(p.children[1]),
+                  p.left_keys, p.right_keys, join_type=p.join_type,
+                  other_cond=p.other_cond,
+                  probe_cms=getattr(p, "probe_cms", None))
+    op.schema = _cols(p)
+    return op
+
+
+def _selection(p: ph.PhysSelection):
+    return Selection(build(p.children[0]), p.cond, _cols(p))
+
+
+def _projection(p: ph.PhysProjection):
+    return Projection(build(p.children[0]), p.exprs, _cols(p))
+
+
+def _limit(p: ph.PhysLimit):
+    return Limit(build(p.children[0]), p.count, p.offset, _cols(p))
+
+
+def _sort(p: ph.PhysSort):
+    return Sort(build(p.children[0]), p.by, _cols(p))
+
+
+def _topn(p: ph.PhysTopN):
+    return TopN(build(p.children[0]), p.by, p.count, p.offset, _cols(p))
+
+
+def _insert(p: ph.PhysInsert):
+    src = p.source
+    if isinstance(src, ph.PhysValues) and not src.schema.cols:
+        # literal VALUES rows, evaluated per cell (None = DEFAULT)
+        return Insert(p.table, p.columns, None, values_rows=src.rows,
+                      on_duplicate=p.on_duplicate,
+                      is_replace=p.is_replace, ignore=p.ignore)
+    return Insert(p.table, p.columns, build(src),
+                  on_duplicate=p.on_duplicate, is_replace=p.is_replace,
+                  ignore=p.ignore)
+
+
+_BUILDERS = {
+    ph.PhysTableReader: _table_reader,
+    ph.PhysPointGet: _point_get,
+    ph.PhysValues: _values,
+    ph.PhysFinalAgg: _final_agg,
+    ph.PhysHashAgg: _hash_agg,
+    ph.PhysStreamAgg: _stream_agg,
+    ph.PhysHashJoin: _hash_join,
+    ph.PhysSelection: _selection,
+    ph.PhysProjection: _projection,
+    ph.PhysLimit: _limit,
+    ph.PhysSort: _sort,
+    ph.PhysTopN: _topn,
+    ph.PhysInsert: _insert,
+}

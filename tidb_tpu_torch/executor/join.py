@@ -14,7 +14,12 @@ from the left. The build side is materialized once; then, by size:
 
 Pairs come back as (li, ri) index arrays and `_post_match` emits the
 joined rows on the host: inner, left (NULL-extended), semi, anti, and
-the right-unmatched pass.
+the right-unmatched pass. With `tidb_tpu_device = 0` every probe chunk
+matches on the host (host_match_pairs), as in the reference.
+
+The heavy-hitter lane is seeded from the build side's duplication and,
+where the planner traced a single probe key to an analyzed base column,
+from that column's CMSketch (`probe_cms`).
 
 Memory: the materialized build, the device-resident build lanes, each
 dispatch's probe lanes and pair buffers, the superchunks in flight and
@@ -56,13 +61,15 @@ class HashJoin:
     _DEVICE_MIN_BUILD = 4096
 
     def __init__(self, left, right, left_keys, right_keys,
-                 join_type: str = "inner", other_cond=None):
+                 join_type: str = "inner", other_cond=None,
+                 probe_cms=None):
         self.left = left
         self.right = right
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
         self.join_type = join_type
         self.other_cond = other_cond
+        self.probe_cms = probe_cms
         self.schema = left.schema + right.schema
         self._kernel = None
 
@@ -131,13 +138,15 @@ class HashJoin:
             encoded=self._encoded_keys(self.left_keys, chunk))
 
     def _fit_build(self, build):
-        """-> (enc, bk) for a materialized build chunk."""
+        """-> (enc, bk, raw_bk) for a materialized build chunk: raw_bk
+        are the evaluated key lanes, bk the encoded ones."""
         enc = JoinKeyEncoder(len(self.right_keys))
-        bk = enc.fit_build(self._eval_keys(self.right_keys, build),
+        raw_bk = self._eval_keys(self.right_keys, build)
+        bk = enc.fit_build(raw_bk,
                            encoded=self._encoded_keys(self.right_keys,
                                                       build),
                            ci=[e.ft.is_ci for e in self.right_keys])
-        return enc, bk
+        return enc, bk, raw_bk
 
     def build_label(self) -> str:
         """The build side's table name, where it is a scan."""
@@ -162,14 +171,16 @@ class HashJoin:
         not run twice."""
         if prepared is not None and nb:
             enc, bk, pre_hot, pre_h = prepared
+            raw_bk = None
         else:
-            enc, bk = self._fit_build(build) if nb \
-                else (JoinKeyEncoder(len(self.right_keys)), None)
+            enc, bk, raw_bk = self._fit_build(build) if nb \
+                else (JoinKeyEncoder(len(self.right_keys)), None, None)
             pre_hot = pre_h = None
         self._kernel = JoinKernel(len(self.left_keys), device=ctx.device)
         matched_build = np.zeros(nb, dtype=bool)
         probe_iter = self.left.chunks(ctx)
-        device_ok = nb > 0 and bool(config.superchunk_rows())
+        device_ok = nb > 0 and config.device_enabled() and \
+            bool(config.superchunk_rows())
         if not device_ok:
             hyb = None
         elif pre_h is not None:
@@ -178,7 +189,7 @@ class HashJoin:
                 self._kernel, bk, nb, config.join_partitions(), ctx.stats,
                 hot_hashes=pre_hot, h=pre_h, plan=self)
         else:
-            hyb = self._maybe_hybrid(ctx, bk, nb)
+            hyb = self._maybe_hybrid(ctx, bk, nb, raw_bk)
         ctx.stats.join_paths[self.build_label()] = \
             "hybrid" if hyb is not None else \
             "pipelined" if device_ok else "per-chunk"
@@ -211,8 +222,9 @@ class HashJoin:
                     continue
                 # superchunks off: the same sort join, per chunk
                 pk = self._probe_keys(enc, chunk)
-                if n >= self._DEVICE_MIN_PROBE or \
-                        nb >= self._DEVICE_MIN_BUILD:
+                if config.device_enabled() and \
+                        (n >= self._DEVICE_MIN_PROBE or
+                         nb >= self._DEVICE_MIN_BUILD):
                     ctx.stats.join_dispatches += 1
                     with sched.device_slot():
                         li, ri = self._kernel(bk, pk, nb, n)
@@ -256,30 +268,47 @@ class HashJoin:
         if out is not None:
             yield out
 
-    def _hybrid_engage(self, bk, nb: int):
+    def _sketch_key(self, raw_bk):
+        """The build side's raw key lane that the probe CMSketch is
+        queried with: a single key of a type whose raw values match the
+        ANALYZE-time sketch encoding (decimal and real keys rescale in
+        _eval_keys, and _ci strings fold), else None."""
+        if len(self.right_keys) != 1 or not raw_bk:
+            return None
+        rk, lk = self.right_keys[0], self.left_keys[0]
+        ok_types = (EvalType.INT, EvalType.STRING, EvalType.DATETIME,
+                    EvalType.DURATION)
+        if rk.ft.eval_type in ok_types and lk.ft.eval_type in ok_types \
+                and not rk.ft.is_ci and not lk.ft.is_ci:
+            return raw_bk[0]
+        return None
+
+    def _hybrid_engage(self, bk, nb: int, raw_bk=None):
         """(engage, hot, h): should the partitioned hybrid path carry this
         build? Under skew, under a statement memory quota (only the
         hybrid build can shed device memory), or with a build over a
         superchunk. Decision only, so the fused-fragment eligibility
         check (executor/agg.HashAgg) can consult it and stand aside. The
-        hot set is the build side's duplication leg alone: no caller
-        gives the port a probe-side CMSketch yet."""
+        hot set is the build side's duplication plus, with the planner's
+        `probe_cms`, the keys that sketch estimates hot."""
         parts = config.join_partitions()
         if parts <= 1 or nb < self._DEVICE_MIN_BUILD:
             return False, None, None
         h = op_hybrid.build_hashes(bk, nb)
-        hot = op_hybrid.detect_hot_hashes(h, config.skew_threshold())
+        hot = op_hybrid.detect_hot_hashes(h, config.skew_threshold(),
+                                          self._sketch_key(raw_bk),
+                                          self.probe_cms)
         root = memtrack.current()
         quota = root is not None and root.quota > 0
         if not hot.size and not quota and nb <= config.superchunk_rows():
             return False, hot, h
         return True, hot, h
 
-    def _maybe_hybrid(self, ctx, bk, nb: int):
+    def _maybe_hybrid(self, ctx, bk, nb: int, raw_bk=None):
         """A HybridJoinBuild when the partitioned path should carry this
         probe: under skew or an over-superchunk build. The unskewed
         in-device-memory case stays on the pipelined probe."""
-        engage, hot, h = self._hybrid_engage(bk, nb)
+        engage, hot, h = self._hybrid_engage(bk, nb, raw_bk)
         if not engage:
             return None
         return op_hybrid.HybridJoinBuild(self._kernel, bk, nb,

@@ -8,18 +8,22 @@ aggregate (a GroupResult) as it arrives; `chunks(ctx)` does the same for
 a scan or selection plan and applies its LIMIT. As a join child it shows
 the `schema` (one SchemaCol per column of `cop.cols`), `col(name)` and
 the `table` name that executor/scan.TableScan shows, so HashJoin takes
-either leaf unchanged. Left out, with the session that owns them: the dirty-transaction fallback through the union
-store (a reader inside a transaction with its own writes) and the query
-feedback to the statistics handle.
+either leaf unchanged. A session statement's interrupt probe
+(`ctx.check_interrupt`) runs per response. Not ported yet: the
+dirty-transaction path through the union store (a read of a table its
+own open transaction wrote raises) and the query feedback to the
+statistics handle.
 """
 
 from __future__ import annotations
 
 from tidb_tpu_torch import codec, tablecodec
-from tidb_tpu_torch.executor.scan import SchemaCol
+from tidb_tpu_torch.errcode import not_ported
+from tidb_tpu_torch.executor import ExecError
 from tidb_tpu_torch.expression import ColumnRef
 from tidb_tpu_torch.kv import CopRequest, KVRange, ReqType
 from tidb_tpu_torch.plan.physical import CopPlan
+from tidb_tpu_torch.plan.resolver import SchemaCol
 
 __all__ = ["TableReader"]
 
@@ -31,7 +35,7 @@ class TableReader:
         self.cop = cop
         self.keep_order = keep_order
         self.table = cop.table.name
-        self.schema = [SchemaCol(self.table, c.name, c.ft)
+        self.schema = [SchemaCol(c.name, self.table, c.ft, c.id)
                        for c in cop.cols]
 
     def col(self, name: str) -> ColumnRef:
@@ -47,6 +51,12 @@ class TableReader:
         return [KVRange(lo, codec.prefix_next(lo))]
 
     def _request(self, ctx) -> CopRequest:
+        if ctx.txn is not None:
+            lo, hi = tablecodec.table_prefix_range(self.cop.table.id)
+            for _kv in ctx.txn.us.membuf.iter_range(lo, hi):
+                raise ExecError(not_ported(
+                    "a read of a table its own transaction wrote (the "
+                    "union scan)"))
         return CopRequest(tp=ReqType.DAG, ranges=self._ranges(),
                           plan=self.cop, start_ts=ctx.read_ts,
                           keep_order=self.keep_order)
@@ -54,6 +64,7 @@ class TableReader:
     def partials(self, ctx):
         """Agg mode: yields GroupResults."""
         for resp in ctx.storage.client().send(self._request(ctx)):
+            ctx.check_interrupt()
             yield resp.chunk
 
     def chunks(self, ctx):
@@ -61,6 +72,7 @@ class TableReader:
         assert not cop.is_agg
         remaining = cop.limit
         for resp in ctx.storage.client().send(self._request(ctx)):
+            ctx.check_interrupt()
             ch = resp.chunk
             if remaining is not None:
                 if remaining <= 0:

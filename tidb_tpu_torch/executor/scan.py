@@ -11,22 +11,11 @@ executor/reader.TableReader instead (run_q3_store / run_q5_store).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 from tidb_tpu_torch.expression import ColumnRef
 from tidb_tpu_torch.ops.runtime import eval_filter_host
-from tidb_tpu_torch.sqltypes import FieldType
+from tidb_tpu_torch.plan.resolver import SchemaCol
 
-__all__ = ["SchemaCol", "TableScan"]
-
-
-@dataclass(frozen=True)
-class SchemaCol:
-    """One output column of an operator."""
-
-    table: str
-    name: str
-    ft: FieldType
+__all__ = ["TableScan"]
 
 
 class TableScan:
@@ -36,7 +25,7 @@ class TableScan:
 
     def __init__(self, table: str, columns, filter=None, host_filter=None):
         self.table = table
-        self.schema = [SchemaCol(table, name, ft) for name, ft in columns]
+        self.schema = [SchemaCol(name, table, ft) for name, ft in columns]
         self.filter = filter
         self.host_filter = host_filter
 

@@ -12,7 +12,8 @@ profiler.note_dispatch) against the issuing plan node.
 
 Device time is recorded only for a collector made with `device=True`
 (the reference builds it so under `tidb_tpu_runtime_stats_device`, a
-sysvar of its session, which the port does not have yet):
+sysvar the port's session does not have: EXPLAIN ANALYZE, which reads
+it, is not ported):
 `device_section` records a CUDA event pair around the region and waits
 for the second (where the reference calls `jax.block_until_ready`), so
 timing serializes the reader with the card. `device_watermark` reads

@@ -30,7 +30,7 @@ one probe dispatch past the quarantine window readmits it.
 section past `tidb_tpu_dispatch_timeout_ms` cancels its statement with
 the retryable DispatchTimeoutError (0 = off, the default).
 
-Left out, with the session that drives them: `AdmissionController`
+Left out, with the server that drives them: `AdmissionController`
 (statement admission against `tidb_tpu_server_mem_quota`) and
 `shed_server`.
 

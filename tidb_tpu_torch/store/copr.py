@@ -350,6 +350,7 @@ def exec_cop_plan(plan: CopPlan, chunk, sources: int = 1,
 
     if plan.host_filter is not None:
         if (plan.is_agg and config.encoded_exec_enabled() and
+                config.device_enabled() and
                 chunk.num_rows >= config.device_min_rows() and
                 _health_gate()):
             resp = _encoded_agg(plan, chunk, sources, dev_ref, device)
@@ -364,7 +365,8 @@ def exec_cop_plan(plan: CopPlan, chunk, sources: int = 1,
         if plan.is_agg:
             runtime_stats.note_encoding(plan, "decoded")
     if plan.is_agg:
-        use_device = chunk.num_rows >= config.device_min_rows() and \
+        use_device = config.device_enabled() and \
+            chunk.num_rows >= config.device_min_rows() and \
             _health_gate()
         retried = False
         while use_device:

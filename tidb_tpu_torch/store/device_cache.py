@@ -245,12 +245,14 @@ class DeviceCache:
         lookups, it RECLAIMS: resident blocks shed on the next consult,
         so `SET tidb_tpu_device_cache_bytes = 0` actually frees the HBM
         it promises to (the shrink-on-lookup path in get() is
-        unreachable once this gate stops all lookups)."""
+        unreachable once this gate stops all lookups). A transient
+        `tidb_tpu_device = 0` keeps residency: flipping the device off
+        and on must not cold-start the cache."""
         if config.device_cache_bytes() <= 0:
             if self._resident[0]:
                 self.shed()
             return False
-        return True
+        return config.device_enabled()
 
     def resident_bytes(self) -> int:
         with self._mu:

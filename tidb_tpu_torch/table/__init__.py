@@ -5,9 +5,9 @@ the reference's table/tables/tables.go: AddRecord, RowWithCols, index
 maintenance; key layout via tablecodec). Two changes: the native
 decoder also takes string columns (native/codec.cc's bytes kind), so a
 TPC-H lineitem scan decodes in C++ where the reference's falls to the
-per-row Python loop; and auto-increment ids, which need the meta layer
-(not ported yet), raise NotImplementedError. A table whose primary key
-is its handle (every TPC-H table) never allocates one.
+per-row Python loop; and `_now_micros`, which the JAX package's copy
+calls without defining. Auto-increment ids come in batches from the
+meta layer (meta/), as in the reference.
 
 Datum conventions at this layer (matching sqltypes):
     INT/DATETIME/DURATION -> python int (epoch micros for times)
@@ -18,6 +18,9 @@ Datum conventions at this layer (matching sqltypes):
 """
 
 from __future__ import annotations
+
+import threading
+import weakref
 
 import numpy as np
 
@@ -172,6 +175,13 @@ def decode_datum_for_col(v, ft: FieldType):
     return v
 
 
+# auto-increment batch caches shared across per-statement Table objects:
+# storage -> {table_id: [next, last]} (ref: autoid.go:36 Allocator held
+# by the domain, not the statement)
+_AUTO_REGISTRY: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_AUTO_LOCK = threading.Lock()
+
+
 def _now_micros() -> int:
     """CURRENT_TIMESTAMP as epoch micros (a DATETIME default)."""
     import datetime
@@ -188,18 +198,76 @@ class Table:
 
     # -- auto increment ------------------------------------------------------
 
+    AUTO_ID_STEP = 4000  # ref: meta/autoid allocator batch (autoid.go:36)
+
     # first id this Table instance generated: the LAST_INSERT_ID source
+    # (MySQL reports the FIRST value generated by the last INSERT)
     first_alloc_id: int | None = None
 
+    def _auto_cache_slot(self) -> list:
+        """Shared [next, last] batch per (storage, table id). Table
+        objects are per-statement, but the allocator must persist across
+        statements like the reference's domain-held autoid.Allocator
+        (autoid.go:36) — else every INSERT burns a fresh 4000-id batch
+        and ids jump 1, 4001, 8001..."""
+        caches = _AUTO_REGISTRY.get(self.storage)
+        if caches is None:
+            caches = _AUTO_REGISTRY.setdefault(self.storage, {})
+        slot = caches.get(self.info.id)
+        if slot is None:
+            slot = caches[self.info.id] = [1, 0]   # empty range
+        return slot
+
     def alloc_auto_id(self, track: bool = True) -> int:
-        raise NotImplementedError(
-            "auto-increment ids need the meta layer, which the port has "
-            "not yet")
+        out = None
+        with _AUTO_LOCK:
+            slot = self._auto_cache_slot()
+            if slot[0] <= slot[1]:
+                out = slot[0]
+                slot[0] += 1
+        if out is None:
+            # batch refill OUTSIDE the lock: the meta txn must not
+            # serialize inserts on unrelated tables. Two racing refills
+            # allocate distinct ranges (meta inc is transactional); the
+            # loser's leftover range is skipped, ids just gap.
+            from tidb_tpu_torch.meta import Meta
+            txn = self.storage.begin()
+            try:
+                first, last = Meta(txn).gen_auto_id(
+                    self.info.id, self.AUTO_ID_STEP)
+                txn.commit()
+            except Exception:
+                txn.rollback()
+                raise
+            out = first
+            with _AUTO_LOCK:
+                slot = self._auto_cache_slot()
+                if last > slot[1]:
+                    slot[0], slot[1] = first + 1, last
+        # only user-visible AUTO_INCREMENT allocations feed
+        # LAST_INSERT_ID; the hidden _tidb_rowid handle does not (MySQL
+        # returns 0 after inserting into a table with no auto column)
+        if track and self.first_alloc_id is None:
+            self.first_alloc_id = out
+        return out
 
     def rebase_auto_id(self, at_least: int) -> None:
-        raise NotImplementedError(
-            "auto-increment ids need the meta layer, which the port has "
-            "not yet")
+        from tidb_tpu_torch.meta import Meta
+        txn = self.storage.begin()
+        try:
+            Meta(txn).rebase_auto_id(self.info.id, at_least)
+            txn.commit()
+        except Exception:
+            txn.rollback()
+            raise
+        with _AUTO_LOCK:
+            slot = self._auto_cache_slot()
+            if slot[0] <= at_least <= slot[1]:
+                # explicit id landed inside the cached batch: skip past
+                # it (ref: autoid.go Rebase with newBase <= alloc.end)
+                slot[0] = at_least + 1
+            elif at_least > slot[1]:
+                slot[0], slot[1] = 1, 0   # force a fresh meta batch
 
     # -- write path ----------------------------------------------------------
 
