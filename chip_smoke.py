@@ -30,7 +30,7 @@ Phases, one JSON line each:
           equal np.sort's; per column, the device time of the sort alone,
           the time of the build's device_sort with its transfers, and the
           host time of the rest
-  q18     TPC-H Q18's inner block at SF 2 (Q18_SF, or --sf where that is
+  q18     TPC-H Q18's inner block at SF 1 (Q18_SF, or --sf where that is
           smaller): ANALYZE of l_orderkey,
           the NDV rule must pick the stream agg, run_q18_inner's rows and
           every group before the HAVING must equal numpy truths
@@ -79,7 +79,27 @@ Phases, one JSON line each:
           every run, the hot Q1 read 4 HBM hits and no host->device
           byte, Q3's lineitem join took the hybrid path, Q5's fragment
           dispatched fused, no fallback, and every statement's ledger at
-          0 after it
+          0 after it; its session and store carry on into htap
+  htap    writes and transactions through SQL on the sql phase's store
+          (htap_phase): TPC-H lineitem batches as SQL (tpch.sql_batch;
+          4,000 updates, 1,000 inserts, 1,000 deletes): 500 statements
+          rolled back (hot Q1 unmoved: 4 hits, no patch, no H->D byte),
+          the batch committed in one transaction (Q1 equal to Q1Mirror's
+          truth, the blocks patched on the card; a snapshot from before
+          the COMMIT still reads the old truth), 4,000 autocommit UPDATEs
+          past the merge threshold (Q1 merged equal to its truth), a
+          FOR UPDATE whose COMMIT after a conflicting write raises the
+          retryable conflict; the JAX package's HTAP mix
+          (benchmarks/htap.py) over HTAP_ROWS stock rows, swept at 0, 20
+          and 100 writes/s, its final rows equal to the numpy replay of
+          the logged writes and to the host path, a dirty transaction's
+          aggregate through the union scan on the card; CREATE INDEX on
+          customer (backfill seconds and batches), a covering aggregate
+          over IndexReader, a row fetch and an aggregate over
+          IndexLookUp, a join on c_custkey that the planner turns into
+          IndexJoin or MergeJoin (named), each equal to a numpy truth;
+          DROP INDEX, TRUNCATE TABLE stock and one GC tick, which drains
+          the delete ranges
   faults  the device plane under injected faults, on Q1 from a store of
           its own at SF 0.1 (CHECK_SF) on one fan-out thread: a dispatch
           fault once (retried on the card, no fallback), then in every
@@ -95,7 +115,9 @@ Phases, one JSON line each:
           shape the cold Q1 run, the first Q3 and Q5 runs, the Q18 run,
           the store's cold, first warm and patched runs and its cold Q3
           and Q5 runs, and the sql phase's cold and warm Q1 and cold Q3
-          and Q5 gave it (their calls recorded by
+          and Q5 and the htap phase's patched and merged Q1, analytic,
+          union-scan, index-reader, index-lookup and index-join
+          statements gave it (their calls recorded by
           segsum_bench.record_calls),
           held again on those
           very inputs and timed: device time beside its host time per
@@ -132,9 +154,10 @@ import torch
 
 # Q18's inner block merges its ~1.5 M groups per scale factor one by one
 # on the host (HashAggregator), as the JAX package does: the q18 phase
-# runs at the largest scale factor that keeps it under about two minutes
-# on the H100's host (SF 1 took 47 s, ANALYZE included; PERF.md)
-Q18_SF = 2.0
+# runs at SF 1 (SF 1 took 47 s, ANALYZE included; PERF.md), cut from SF 2
+# so that the whole smoke, its htap phase included, stays under 16
+# minutes on the card
+Q18_SF = 1.0
 
 # The store phase loads TPC-H into the mock TiKV store (every KV pair a
 # Python object) and decodes each lineitem row of the cold scan on the
@@ -148,6 +171,11 @@ STORE_SF = 1.0
 # (the host chunks' dictionary encodes, a block's first-patch position
 # map) must not land ahead of the timed runs
 CHECK_SF = 0.1
+# The htap phase's stock table: the JAX package's bench.py htap loads
+# 60,000 rows; raised so that the card holds a real block (2^20 rows,
+# one region), with the reference's 5 s windows
+HTAP_ROWS = 1 << 20
+HTAP_WINDOW_S = 5.0
 # The sql phase's hot Q1 runs this many rounds of (SQL, run_q1_store) in
 # turn over one storage, so that its cost over the store path is told
 # apart from the host clock's run-to-run spread
@@ -195,28 +223,18 @@ def segsum_case(rng, dtype, n, k, c, mask, dev, ids=None):
 
 
 def hold(got, v, i, c, m, where, worst) -> None:
-    """One parity check against segment_sum_plain: int64 exactly
-    (two's-complement wrap included); float64 within 1e-12 and float32
-    within 1e-5 of each segment's sum of |v| (atomic order varies from
-    run to run)."""
-    from tidb_tpu_torch.ops import segsum
-    want = segsum.segment_sum_plain(v, i, c, valid=m)
+    """One parity check against segment_sum_plain
+    (segsum_bench.parity_error: int64 exactly, float64 within 1e-12 and
+    float32 within 1e-5 of each segment's sum of |v|), the worst error
+    per dtype kept in `worst`."""
+    from tidb_tpu_torch.benchmarks import segsum_bench
     torch.cuda.synchronize()
-    if v.dtype == torch.int64:
-        if not torch.equal(got, want):
-            raise AssertionError(f"segsum {where}: int64 sums differ")
-        return
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"segsum {where}: NaN/inf")
-    scale = segsum.segment_sum_plain(torch.nan_to_num(v).abs(), i, c,
-                                     valid=m)
-    rtol = 1e-5 if v.dtype == torch.float32 else 1e-12
-    err = (got - want).abs()
-    if bool((err > rtol * scale + 1e-30).any()):
-        raise AssertionError(f"segsum {where}: max err {err.max().item()} "
-                             "over tolerance")
+    err, ok = segsum_bench.parity_error(got, v, i, c, m)
+    if not ok:
+        raise AssertionError(f"segsum {where}: max err {err} over "
+                             "tolerance")
     name = str(v.dtype).removeprefix("torch.")
-    worst[name] = max(worst[name], err.max().item())
+    worst[name] = max(worst[name], err)
 
 
 def edge_ids(case, n, c, window):
@@ -1063,7 +1081,7 @@ def store_query_runs(args, dev, storage, d, recorded) -> dict:
     return out
 
 
-def sql_phase(args, dev, recorded) -> dict:
+def sql_phase(args, dev, recorded) -> tuple[dict, dict]:
     """TPC-H Q1, Q3 and Q5 as SQL text through the port's Session at
     min(--sf, STORE_SF): CREATE DATABASE, USE and tpch.load (the DDL
     through the DDL and meta layers, lineitem and orders in 4 regions),
@@ -1076,12 +1094,13 @@ def sql_phase(args, dev, recorded) -> dict:
     statement's ledger at 0; the hot Q1 read 4 HBM hits and no
     host->device byte; Q3's lineitem join took the hybrid path; Q5's
     fragment dispatched fused. The cold runs' and the warm Q1's
-    segment_sum calls go to recorded["sql-*"]."""
+    segment_sum calls go to recorded["sql-*"]. -> (the phase's line, the
+    session, storage, data and loaded rows, which the htap phase
+    reuses)."""
     from tidb_tpu_torch import metrics
     from tidb_tpu_torch.benchmarks import segsum_bench, tpch
     from tidb_tpu_torch.ops import runtime, segsum
     from tidb_tpu_torch.session import Session
-    from tidb_tpu_torch.store import device_cache
     from tidb_tpu_torch.store.storage import new_mock_storage
     sf = min(args.sf, STORE_SF)
     d = tpch.ScaledTpch(sf, args.seed)
@@ -1188,14 +1207,9 @@ def sql_phase(args, dev, recorded) -> dict:
     out["explain"] = {name: [r[0] for r in sess.query(
         "EXPLAIN " + getattr(tpch, name.upper())).rows]
         for name in ("q1", "q3", "q5")}
-    node = device_cache.tracker()
-    sess.close()
-    storage.close()
-    out["hbm_resident_after_shed"] = node.device
-    if node.device:
-        raise AssertionError(f"sql: the hbm-cache node holds {node.device} "
-                             "B after shed")
-    return out
+    statement("SET @@tidb_tpu_copr_stream = 1")
+    return out, {"sess": sess, "storage": storage, "d": d,
+                 "counter": counter}
 
 
 def hot_q1_against_store(sess, storage, d, regions, counter) -> dict:
@@ -1263,6 +1277,351 @@ def hot_q1_against_store(sess, storage, d, regions, counter) -> dict:
         out[f"{side}_profile_self_ms"] = [
             {"function": k[:80], "calls": n, "self_ms": tt * 1e3}
             for tt, n, k in top[:15]]
+    return out
+
+
+def htap_phase(args, dev, recorded, sess, storage, d, counter) -> dict:
+    """Writes and transactions through SQL on the sql phase's session and
+    store (no third TPC-H load), in an order where no DDL re-colds
+    lineitem before its checks (a DDL or GC commit re-colds every cache).
+
+    1. TPC-H writes as SQL (tpch.sql_batch, the store phase's batch
+       sizes), with synchronous secondaries: the batch's first 500
+       statements rolled back (hot Q1 equals the old truth: 4 hits, no
+       patch, no host->device byte), a second session's BEGIN before the
+       COMMIT of the whole batch (its Q1 afterwards equals the old
+       truth), Q1 after the commit (equal to Q1Mirror's truth, blocks
+       patched on the card, the kernel launched), 4,000 autocommit
+       single-row UPDATEs past tidb_tpu_delta_merge_rows (Q1 merged
+       equals its truth), and a SELECT ... FOR UPDATE whose COMMIT after
+       a conflicting UPDATE raises the retryable conflict.
+    2. The reference's HTAP mix (benchmarks/htap.py) at HTAP_ROWS stock
+       rows with the reference's default asynchronous secondaries: warm
+       twice, sweep rates 0, 20 and 100 writes/s in 5 s windows (the
+       writer on a second session and thread); every analytic read's
+       COUNT sums to the rows, the kernel launched in every window, no
+       fallback, every ledger at 0; the final rows equal the numpy
+       replay of the logged writes and the host path's. Then a
+       transaction's three UPDATEs read back by the analytic statement
+       through the union scan on the card, equal to the numpy truth,
+       and rolled back.
+    3. Indexes and online DDL: CREATE INDEX i_c_nation ON customer
+       (c_nationkey) (backfill seconds and batches) and i_s_nation on
+       supplier; a covering aggregate (IndexReader), a row fetch and an
+       aggregate over IndexLookUp, and after ANALYZE a join on c_custkey
+       (the planner's choice, named), each equal to a numpy truth; then
+       DROP INDEX, TRUNCATE TABLE stock and one GC tick: the delete
+       ranges drained, stock empty; what the tick re-colds is reported
+       (the cache misses of an aggregate over customer warmed before
+       it), not asserted.
+    The segment_sum calls of the new shapes go to recorded["htap-*"]."""
+    from decimal import Decimal
+
+    from tidb_tpu_torch import kv, metrics
+    from tidb_tpu_torch.benchmarks import htap, segsum_bench, tpch
+    from tidb_tpu_torch.ddl import worker as ddl_worker
+    from tidb_tpu_torch.ops import runtime, segsum
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.store import device_cache
+    from tidb_tpu_torch.store.gcworker import GCWorker
+    cache = storage.device_cache
+    node = device_cache.tracker()
+    regions = 4
+    n = d.counts["lineitem"]
+    mirror = tpch.Q1Mirror(d)
+    out = {"phase": "htap", "sf": min(args.sf, STORE_SF),
+           "lineitem_rows": n, "steps": {}}
+
+    def execute(s, sql):
+        res = s.execute(sql)
+        if s.last_mem_left:
+            raise AssertionError(f"htap {sql[:60]!r}: the statement's "
+                                 f"ledger holds {s.last_mem_left} B")
+        return res
+
+    def query(name, sql, truth, record=None, s=None, same=None,
+              profile=False):
+        """One statement held to `truth` (by `same`, else ==), with its
+        seconds, HBM counters, patches, H->D bytes and launches; under
+        cProfile with `profile` (the port's functions by own time)."""
+        import cProfile
+        import pstats
+        s = s or sess
+        py = cProfile.Profile() if profile else None
+        hits0 = counter(metrics.HBM_CACHE_HITS)
+        misses0 = counter(metrics.HBM_CACHE_MISSES)
+        put0, patches0 = runtime.put_bytes(), cache.patches
+        chunk0 = (storage.chunk_cache.hits, storage.chunk_cache.misses)
+        torch.cuda.synchronize()
+        with (segsum_bench.record_calls() if record
+              else contextlib.nullcontext()) as rec:
+            segsum.launches = 0
+            if py is not None:
+                py.enable()
+            t0 = time.perf_counter()
+            rows = s.query(sql).rows
+            seconds = time.perf_counter() - t0
+            if py is not None:
+                py.disable()
+            launches = segsum.launches
+        if rec is not None:
+            recorded[record] = recorded_path(record, rec, launches)
+        st, coll = s.last_stats, s.last_collector
+        op_fallbacks = {op.name: op.fallback_reasons for op in coll.ops()
+                        if op.fallbacks}
+        if not (same(rows, truth) if same else rows == truth):
+            raise AssertionError(f"htap {name}: rows differ from the "
+                                 f"truth:\n{rows}\n{truth}")
+        if st.fallbacks or op_fallbacks:
+            raise AssertionError(f"htap {name}: fallbacks "
+                                 f"{st.fallback_reasons} {op_fallbacks}")
+        if s.last_mem_left:
+            raise AssertionError(f"htap {name}: the statement's ledger "
+                                 f"holds {s.last_mem_left} B")
+        got = {"seconds": seconds,
+               "hbm_hits": counter(metrics.HBM_CACHE_HITS) - hits0,
+               "hbm_misses": counter(metrics.HBM_CACHE_MISSES) - misses0,
+               "hbm_patches": cache.patches - patches0,
+               "chunk_cache_hits": storage.chunk_cache.hits - chunk0[0],
+               "chunk_cache_misses": storage.chunk_cache.misses - chunk0[1],
+               "h2d_bytes": runtime.put_bytes() - put0,
+               "segsum_launches": launches,
+               "join_paths": st.join_paths}
+        if py is not None:
+            top = sorted(((tt, c, f"{os.path.basename(f)}:{line}:{fn}")
+                          for (f, line, fn), (_cc, c, tt, _ct, _c)
+                          in pstats.Stats(py).stats.items()
+                          if f"{os.sep}tidb_tpu_torch{os.sep}" in f),
+                         reverse=True)
+            got["profile_self_ms"] = [
+                {"function": k[:80], "calls": c, "self_ms": tt * 1e3}
+                for tt, c, k in top[:12]]
+        out["steps"][name] = got
+        return got
+
+    def q1(name, record=None, s=None):
+        return query(name, tpch.Q1, tpch.as_session_rows("q1",
+                                                         mirror.truth()),
+                     record=record, s=s)
+
+    # -- 1. TPC-H writes through SQL, in transactions -----------------------
+    storage.async_commit_secondaries = False
+    hot = q1("q1_hot_before")
+    if hot["hbm_hits"] != regions or hot["hbm_misses"]:
+        raise AssertionError(f"htap: Q1 not hot before the writes {hot}")
+    lo = (regions - 1) * (n // regions)
+    b1 = tpch.write_batch(d, np.arange(lo, n), args.seed + 1, 4000, 1000,
+                          1000, next_handle=n, new_flag="X")
+    stmts = tpch.sql_batch(b1)
+    journal0 = storage.delta_store.rows_current()
+    execute(sess, "BEGIN")
+    t0 = time.perf_counter()
+    for sql in stmts[:500]:
+        execute(sess, sql)
+    rb_s = time.perf_counter() - t0
+    execute(sess, "ROLLBACK")
+    out["rollback"] = {"statements": 500, "seconds": rb_s,
+                       "statements_per_s": 500 / rb_s,
+                       "journal_rows": storage.delta_store.rows_current()}
+    rolled = q1("q1_after_rollback")
+    if rolled["hbm_hits"] != regions or rolled["hbm_patches"] or \
+            rolled["h2d_bytes"] or rolled["hbm_misses"] or \
+            storage.delta_store.rows_current() != journal0:
+        raise AssertionError(f"htap: the rolled-back batch moved Q1 "
+                             f"{rolled}")
+    old_truth = tpch.as_session_rows("q1", mirror.truth())
+    other = Session(storage, db="tpch")
+    execute(other, "BEGIN")
+    execute(sess, "BEGIN")
+    t0 = time.perf_counter()
+    for sql in stmts:
+        execute(sess, sql)
+    stmt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    execute(sess, "COMMIT")
+    commit_s = time.perf_counter() - t0
+    mirror.apply(b1)
+    out["commit"] = {"statements": len(stmts), "seconds": stmt_s,
+                     "statements_per_s": len(stmts) / stmt_s,
+                     "commit_ms": commit_s * 1e3,
+                     "journal_rows": storage.delta_store.rows_current() -
+                     journal0}
+    if out["commit"]["journal_rows"] != 6000:
+        raise AssertionError(f"htap: {out['commit']} journaled rows after "
+                             "the committed batch (6,000 expected)")
+    query("q1_snapshot_before_commit", tpch.Q1, old_truth, s=other)
+    execute(other, "COMMIT")
+    timer = TimedPatches()
+    with timer:
+        patched = q1("q1_patched", record="htap-q1-patched")
+    out["patch"] = timer.finish()
+    if patched["hbm_patches"] < 1 or patched["hbm_misses"] or \
+            patched["segsum_launches"] <= 0:
+        raise AssertionError(f"htap: the committed batch was not patched "
+                             f"on the card {patched}")
+    live = np.setdiff1d(np.arange(lo, n), b1.deletes)
+    b2 = tpch.write_batch(d, live, args.seed + 2, 4000)
+    merges0 = counter(metrics.DELTA_MERGES)
+    t0 = time.perf_counter()
+    for sql in tpch.sql_batch(b2):
+        execute(sess, sql)
+    auto_s = time.perf_counter() - t0
+    storage.delta_store.join()
+    mirror.apply(b2)
+    out["autocommit"] = {"statements": 4000, "seconds": auto_s,
+                         "statements_per_s": 4000 / auto_s,
+                         "merges": counter(metrics.DELTA_MERGES) - merges0}
+    if not out["autocommit"]["merges"]:
+        raise AssertionError(f"htap: no delta merge after 4,000 UPDATEs "
+                             f"{out['autocommit']}")
+    q1("q1_merged", record="htap-q1-merged")
+    h = int(live[0])
+    execute(sess, "BEGIN")
+    sess.query(f"SELECT l_quantity FROM lineitem WHERE l_id = {h} "
+               "FOR UPDATE")
+    execute(other, f"UPDATE lineitem SET l_tax = l_tax WHERE l_id = {h}")
+    try:
+        sess.execute("COMMIT")
+    except kv.RetryableError as e:
+        out["for_update_conflict"] = type(e).__name__
+    else:
+        raise AssertionError("htap: a FOR UPDATE transaction committed "
+                             "over a conflicting write")
+    other.close()
+
+    # -- 2. the reference's HTAP mix ----------------------------------------
+    storage.async_commit_secondaries = True
+    execute(sess, "CREATE DATABASE htap")
+    execute(sess, "USE htap")
+    t0 = time.perf_counter()
+    stock = htap.setup(sess, storage, HTAP_ROWS)
+    out["stock_load_s"] = time.perf_counter() - t0
+
+    def same(rows, truth):
+        return htap.same_rows(rows, truth)
+
+    query("analytic_cold", htap.ANALYTIC, stock.truth(), same=same)
+    query("analytic_warm", htap.ANALYTIC, stock.truth(), same=same)
+    res = htap.sweep(sess, storage, HTAP_ROWS, (0, 20, 100), HTAP_WINDOW_S)
+    for seq, i in res.pop("committed"):
+        stock.apply(seq, i)
+    for rate, r in res["rates"].items():
+        if r["errors"] or r["segsum_launches"] <= 0 or r["fallbacks"] or \
+                r["ledger_left_max"]:
+            raise AssertionError(f"htap sweep at {rate}/s: {r}")
+    out["sweep"] = res
+    query("analytic_after_sweep", htap.ANALYTIC, stock.truth(),
+          record="htap-analytic", same=same)
+    # the sweep's writes after the last read: one read under cProfile
+    # serves the stock block with them (where a read under writes goes)
+    for i, sql in enumerate(htap.write_statements(10 ** 6, HTAP_ROWS)):
+        execute(sess, sql)
+        stock.apply(10 ** 6, i)
+    query("analytic_profiled", htap.ANALYTIC, stock.truth(), same=same,
+          profile=True)
+    execute(sess, "SET @@tidb_tpu_device = 0")
+    try:
+        query("analytic_host", htap.ANALYTIC, stock.truth(), same=same)
+    finally:
+        execute(sess, "SET @@tidb_tpu_device = 1")
+    execute(sess, "BEGIN")
+    mine = htap.StockMirror(stock.cols)
+    for k in (3, HTAP_ROWS // 2, HTAP_ROWS - 1):
+        execute(sess, f"UPDATE stock SET s_qty = s_qty + 5, "
+                      f"s_cnt = 999999 WHERE s_id = {k}")
+        mine.cols["s_qty"][k] += 5
+        mine.cols["s_cnt"][k] = 999999
+    dirty = query("analytic_in_txn", htap.ANALYTIC, mine.truth(),
+                  record="htap-union-scan", same=same)
+    execute(sess, "ROLLBACK")
+    if dirty["segsum_launches"] <= 0:
+        raise AssertionError(f"htap: the union scan's aggregate did not "
+                             f"launch the kernel {dirty}")
+
+    # -- 3. secondary indexes and online DDL --------------------------------
+    execute(sess, "USE tpch")
+    batches = []
+    real_init = ddl_worker.DDLWorker.__init__
+
+    def counting_init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        self.on_backfill_batch = lambda jb, cnt: batches.append(cnt)
+    ddl_worker.DDLWorker.__init__ = counting_init
+    try:
+        t0 = time.perf_counter()
+        execute(sess, "CREATE INDEX i_c_nation ON customer (c_nationkey)")
+        out["backfill"] = {"seconds": time.perf_counter() - t0,
+                           "batches": len(batches), "rows": sum(batches)}
+        execute(sess, "CREATE INDEX i_s_nation ON supplier (s_nationkey)")
+    finally:
+        ddl_worker.DDLWorker.__init__ = real_init
+    if out["backfill"]["rows"] != d.counts["customer"]:
+        raise AssertionError(f"htap: the backfill wrote {out['backfill']}")
+    c_nation = d.c_nationkey
+    s_nation = d.s_nationkey
+    cover = ("SELECT n, COUNT(*) FROM (SELECT s_nationkey AS n FROM "
+             "supplier WHERE s_nationkey < 10) x GROUP BY n ORDER BY n")
+    lookup = ("SELECT c_custkey, c_mktsegment FROM customer "
+              "WHERE c_nationkey = 7 ORDER BY c_custkey")
+    lookup_agg = ("SELECT m, COUNT(*) FROM (SELECT c_mktsegment AS m FROM "
+                  "customer WHERE c_nationkey = 7) x GROUP BY m ORDER BY m")
+    segs = np.array(tpch.SEGMENTS, dtype=object)[d.c_mktsegment]
+    sel = np.flatnonzero(c_nation == 7)
+    truths = {
+        "index_reader": [(int(v), int((s_nation == v).sum()))
+                         for v in np.unique(s_nation[s_nation < 10])],
+        "index_lookup": [(int(i), str(segs[i])) for i in sel],
+        "index_lookup_agg": [(str(m), int((segs[sel] == m).sum()))
+                             for m in sorted(set(segs[sel]))]}
+    plans = {}
+    for name, sql, op, record in (
+            ("index_reader", cover, "IndexReader", "htap-index-reader"),
+            ("index_lookup", lookup, "IndexLookUp", None),
+            ("index_lookup_agg", lookup_agg, "IndexLookUp",
+             "htap-index-lookup")):
+        plans[name] = [r[0] for r in sess.query("EXPLAIN " + sql).rows]
+        if not any(op in line for line in plans[name]):
+            raise AssertionError(f"htap {name}: no {op} in {plans[name]}")
+        query(name, sql, truths[name], record=record)
+    execute(sess, "ANALYZE TABLE customer, orders")
+    # 1 % of the orders: a lookup per outer row costs less than the scan
+    outer = d.counts["orders"] // 100
+    join = ("SELECT c_mktsegment, COUNT(*) FROM orders, customer "
+            f"WHERE o_custkey = c_custkey AND o_orderkey < {outer} "
+            "GROUP BY c_mktsegment ORDER BY c_mktsegment")
+    jsegs = segs[d.o_custkey[:outer]]
+    plans["join"] = [r[0] for r in sess.query("EXPLAIN " + join).rows]
+    picked = [op for op in ("IndexJoin", "MergeJoin")
+              if any(op in line for line in plans["join"])]
+    if not picked:
+        raise AssertionError(f"htap join: neither IndexJoin nor MergeJoin "
+                             f"{plans['join']}")
+    out["join_algorithm"] = picked[0]
+    query("index_join", join, [(str(m), int((jsegs == m).sum()))
+                               for m in sorted(set(jsegs))],
+          record="htap-index-join")
+    out["plans"] = plans
+    execute(sess, "DROP INDEX i_c_nation ON customer")
+    execute(sess, "TRUNCATE TABLE htap.stock")
+    # a small aggregate warmed after the DDL: what the GC tick re-colds
+    scan = "SELECT COUNT(*), SUM(c_nationkey) FROM customer"
+    scan_truth = [(d.counts["customer"], Decimal(int(c_nation.sum())))]
+    query("customer_cold", scan, scan_truth)
+    query("customer_warm", scan, scan_truth)
+    time.sleep(0.05)     # the sealed ranges strictly below the safepoint
+    t0 = time.perf_counter()
+    gc = GCWorker(storage, gc_life_time_ms=0).run_once()
+    out["gc"] = {**gc, "seconds": time.perf_counter() - t0}
+    if not gc.get("advanced") or gc.get("delete_ranges", 0) < 2:
+        raise AssertionError(f"htap gc: delete ranges not drained {gc}")
+    query("stock_after_gc", "SELECT COUNT(*) FROM htap.stock", [(0,)])
+    query("customer_after_gc", scan, scan_truth)
+    sess.close()
+    storage.close()
+    out["hbm_resident_after_shed"] = node.device
+    if node.device:
+        raise AssertionError(f"htap: the hbm-cache node holds {node.device} "
+                             "B after shed")
     return out
 
 
@@ -1490,7 +1849,9 @@ def main() -> int:
     emit(q18_phase(args, dev, d, tables, recorded))
     del d, tables
     emit(store_phase(args, dev, recorded))
-    emit(sql_phase(args, dev, recorded))
+    out, kept = sql_phase(args, dev, recorded)
+    emit(out)
+    emit(htap_phase(args, dev, recorded, **kept))
     emit(faults_phase(args, dev))
 
     # the kernel at every shape the three paths gave it, on their own

@@ -31,9 +31,10 @@ from dataclasses import dataclass
 import numpy as np
 
 from tidb_tpu_torch.chunk import Chunk, Column
-from tidb_tpu_torch.sqltypes import (FieldType, TypeCode, date_to_micros,
-                                     new_datetime_field, new_decimal_field,
-                                     new_int_field, parse_datetime)
+from tidb_tpu_torch.sqltypes import (EvalType, FieldType, TypeCode,
+                                     date_to_micros, new_datetime_field,
+                                     new_decimal_field, new_int_field,
+                                     parse_datetime)
 
 __all__ = ["ScaledTpch", "DDL", "load", "as_session_rows", "Q1", "Q3",
            "Q5", "TABLE_COLUMNS",
@@ -895,6 +896,51 @@ def commit_batch(storage, b: WriteBatch, info=None) -> int:
         txn.rollback()
         raise
     return len(b.updates) + len(b.deletes) + len(b.inserts.get("l_id", ()))
+
+
+def _scaled2(v: int) -> str:
+    """A frac-2 scaled integer as a DECIMAL literal."""
+    v = int(v)
+    sign = "-" if v < 0 else ""
+    return f"{sign}{abs(v) // 100}.{abs(v) % 100:02d}"
+
+
+def _date_literal(us: int) -> str:
+    """An epoch-microsecond DATE datum as a 'YYYY-MM-DD' literal."""
+    day = _EPOCH_DATE + datetime.timedelta(
+        microseconds=int(us) - _epoch_us())
+    return f"'{day.isoformat()}'"
+
+
+def sql_batch(b: WriteBatch) -> list[str]:
+    """`b` as SQL statements, in commit_batch's order: one single-row
+    UPDATE per updated handle (l_quantity as a frac-2 DECIMAL literal,
+    so the stored datum is commit_batch's), DELETE ... WHERE l_id IN
+    (...) of the deleted handles, at most ranger.MAX_RANGES a statement
+    (so each reads its rows by point ranges, not by a table scan), one
+    multi-row INSERT of the inserts (DATE columns as date literals)."""
+    from tidb_tpu_torch.ranger import MAX_RANGES
+    out = [f"UPDATE lineitem SET l_quantity = {_scaled2(q)}, "
+           f"l_returnflag = '{f}' WHERE l_id = {int(h)}"
+           for h, q, f in zip(b.updates, b.upd_qty, b.upd_flag)]
+    for i in range(0, len(b.deletes), MAX_RANGES):
+        out.append("DELETE FROM lineitem WHERE l_id IN (" + ", ".join(
+            str(int(h)) for h in b.deletes[i:i + MAX_RANGES]) + ")")
+    n = len(b.inserts.get("l_id", ()))
+    if n:
+        names = list(b.inserts)
+        ets = dict(LINEITEM_COLUMNS)
+        fmt = [{EvalType.DECIMAL: _scaled2,
+                EvalType.DATETIME: _date_literal,
+                EvalType.STRING: lambda v: f"'{v}'"}.get(
+                    ets[name].eval_type, lambda v: str(int(v)))
+               for name in names]
+        rows = ["(" + ", ".join(f(b.inserts[name][i])
+                                for f, name in zip(fmt, names)) + ")"
+                for i in range(n)]
+        out.append(f"INSERT INTO lineitem ({', '.join(names)}) VALUES " +
+                   ", ".join(rows))
+    return out
 
 
 class Q1Mirror:

@@ -1,9 +1,9 @@
 """DDL: statement validation + job construction (the API half).
 
-The port's copy of the JAX package's ddl/__init__.py for CREATE/DROP
-DATABASE and CREATE/DROP TABLE, run to the end by the in-process worker
-(one process is the only owner: no election, no remote wait). ALTER
-TABLE, CREATE/DROP INDEX, TRUNCATE and RENAME raise "not ported yet".
+The port's copy of the JAX package's ddl/__init__.py: CREATE/DROP
+DATABASE, CREATE/DROP TABLE, TRUNCATE, RENAME, CREATE/DROP INDEX and
+ALTER TABLE, each job run to the end by the in-process worker (one
+process is the only owner: no election, no remote wait).
 
 Reference: TiDB's ddl/ddl_api.go (validation + job build),
 ddl/ddl.go:406 doDDLJob (enqueue, then wait for the owner's worker to
@@ -18,7 +18,6 @@ from __future__ import annotations
 
 from tidb_tpu_torch import kv
 from tidb_tpu_torch.ddl.job import Job, JobType
-from tidb_tpu_torch.errcode import not_ported
 from tidb_tpu_torch.ddl.worker import DDLWorker, JobFailed
 from tidb_tpu_torch.meta import Meta
 from tidb_tpu_torch.parser import ast
@@ -34,12 +33,6 @@ class DDLError(kv.KVError):
     pass
 
 
-# DDL statements the reference runs and the port does not yet: the
-# column and index jobs, TRUNCATE and RENAME
-_UNPORTED = ("TruncateTableStmt", "RenameTableStmt", "CreateIndexStmt",
-             "DropIndexStmt", "AlterTableStmt")
-
-
 class DDL:
     """Validates a DDL statement, enqueues its job(s), runs the worker."""
 
@@ -51,11 +44,11 @@ class DDL:
                 domain=None) -> None:
         m = getattr(self, "_build_" + type(stmt).__name__, None)
         if m is None:
-            if type(stmt).__name__ in _UNPORTED:
-                raise DDLError(not_ported(type(stmt).__name__))
             raise DDLError(f"unsupported DDL {type(stmt).__name__}")
         # one process is the only owner: each job runs here, to the end
-        # (the reference's owner election and remote wait are not ported)
+        # (the reference's owner election and remote wait are not ported).
+        # Build + run jobs one at a time: later specs of one ALTER
+        # validate against the schema the earlier ones produced.
         for build in m(stmt, current_db):
             job = self._enqueue(build)
             if job is None:
@@ -173,6 +166,198 @@ class DDL:
                            table_id=t.id)
             builders.append(build)
         return builders
+
+    def _build_TruncateTableStmt(self, stmt, current_db):
+        def build(meta: Meta):
+            db, t = self._must_resolve(meta, stmt.table, current_db)
+            return Job(tp=JobType.TRUNCATE_TABLE, schema_id=db.id,
+                       table_id=t.id,
+                       args={"new_table_id": meta.gen_global_id()})
+        return [build]
+
+    def _build_RenameTableStmt(self, stmt, current_db):
+        builders = []
+        for old_ts, new_ts in stmt.pairs:
+            def build(meta: Meta, old_ts=old_ts, new_ts=new_ts):
+                db, t = self._must_resolve(meta, old_ts, current_db)
+                new_db = self._find_db(meta, new_ts.db or current_db)
+                if self._find_table(meta, new_db.id, new_ts.name) is not None:
+                    raise DDLError(f"table '{new_ts.name}' exists")
+                return Job(tp=JobType.RENAME_TABLE, schema_id=db.id,
+                           table_id=t.id,
+                           args={"new_name": new_ts.name,
+                                 "new_schema_id": new_db.id})
+            builders.append(build)
+        return builders
+
+    # -- indexes -------------------------------------------------------------
+
+    def _index_job(self, meta: Meta, db, t: TableInfo, name: str,
+                   columns: list[str], unique: bool) -> Job:
+        if t.index_by_name(name) is not None:
+            raise DDLError(f"index '{name}' exists")
+        for cn in columns:
+            if t.col_by_name(cn) is None:
+                raise DDLError(f"Unknown column '{cn}'")
+        idx = IndexInfo(id=t.alloc_index_id(), name=name, columns=columns,
+                        unique=unique)
+        # persist the bumped max_index_id now so a concurrent/later job
+        # can't hand out the same id
+        meta.update_table(db.id, t)
+        return Job(tp=JobType.ADD_INDEX, schema_id=db.id, table_id=t.id,
+                   args={"index": idx.to_json()})
+
+    def _build_CreateIndexStmt(self, stmt, current_db):
+        def build(meta: Meta):
+            db, t = self._must_resolve(meta, stmt.table, current_db)
+            return self._index_job(meta, db, t, stmt.index_name,
+                                   stmt.columns, stmt.unique)
+        return [build]
+
+    def _build_DropIndexStmt(self, stmt, current_db):
+        def build(meta: Meta):
+            db, t = self._must_resolve(meta, stmt.table, current_db)
+            if t.index_by_name(stmt.index_name) is None:
+                if stmt.if_exists:
+                    return None
+                raise DDLError(f"index '{stmt.index_name}' doesn't exist")
+            return Job(tp=JobType.DROP_INDEX, schema_id=db.id,
+                       table_id=t.id, args={"name": stmt.index_name})
+        return [build]
+
+    # -- ALTER ---------------------------------------------------------------
+
+    def _build_AlterTableStmt(self, stmt, current_db):
+        # one schema change per statement, like the reference
+        # (ddl_api.go AlterTable: errRunMultiSchemaChanges) — keeps ALTER
+        # atomic: a failing spec can't leave earlier specs applied.
+        # Parse-level no-ops (LOCK=/ALGORITHM=/ENABLE KEYS) don't count.
+        specs = [sp for sp in stmt.specs if sp.tp != "noop"]
+        if not specs:
+            return []
+        if len(specs) != 1:
+            raise DDLError("running multiple schema changes in one "
+                           "statement is not supported")
+        spec = specs[0]
+        if spec.tp == "add_columns":
+            if len(spec.columns) != 1:
+                raise DDLError("running multiple schema changes in one "
+                               "statement is not supported")
+            spec = ast.AlterSpec(tp="add_column", column=spec.columns[0])
+
+        def build(meta: Meta):
+            db, t = self._must_resolve(meta, stmt.table, current_db)
+            return self._alter_spec_job(meta, db, t, spec)
+        return [build]
+
+    def _alter_spec_job(self, meta: Meta, db, t: TableInfo, spec):
+        if spec.tp == "add_column":
+            cd = spec.column
+            _check_column_type(cd)
+            if t.col_by_name(cd.name) is not None:
+                raise DDLError(f"column '{cd.name}' exists")
+            default = None
+            has_default = cd.has_default
+            if cd.has_default and cd.default is not None:
+                default = _const_default(cd)
+            elif not cd.ft.not_null:
+                has_default = True   # NULL default for existing rows
+            col = ColumnInfo(id=t.alloc_column_id(), name=cd.name,
+                             offset=len(t.columns), ft=cd.ft,
+                             default=default, has_default=has_default,
+                             auto_increment=cd.auto_increment)
+            meta.update_table(db.id, t)   # persist max_column_id bump
+            if spec.position == "after" and \
+                    t.col_by_name(spec.after_col) is None:
+                raise DDLError(f"Unknown column '{spec.after_col}'")
+            return Job(tp=JobType.ADD_COLUMN, schema_id=db.id,
+                       table_id=t.id,
+                       args={"column": col.to_json(),
+                             "position": spec.position,
+                             "after_col": spec.after_col})
+        if spec.tp == "drop_column":
+            col = t.col_by_name(spec.name)
+            if col is None:
+                raise DDLError(f"Unknown column '{spec.name}'")
+            if t.pk_is_handle and \
+                    t.pk_col_name.lower() == spec.name.lower():
+                raise DDLError("cannot drop the integer primary key")
+            for idx in t.indexes:
+                if any(c.lower() == spec.name.lower()
+                       for c in idx.columns):
+                    raise DDLError(f"column '{spec.name}' is indexed; "
+                                   "drop index first")
+            return Job(tp=JobType.DROP_COLUMN, schema_id=db.id,
+                       table_id=t.id, args={"name": spec.name})
+        if spec.tp == "add_index":
+            idef = spec.index
+            return self._index_job(meta, db, t,
+                                   idef.name or "_".join(idef.columns),
+                                   idef.columns, idef.unique)
+        if spec.tp == "drop_index":
+            if t.index_by_name(spec.name) is None:
+                raise DDLError(f"index '{spec.name}' doesn't exist")
+            return Job(tp=JobType.DROP_INDEX, schema_id=db.id,
+                       table_id=t.id, args={"name": spec.name})
+        if spec.tp in ("modify_column", "change_column"):
+            old_name = spec.name if spec.tp == "change_column" \
+                else spec.column.name
+            old = t.col_by_name(old_name)
+            if old is None:
+                raise DDLError(f"Unknown column '{old_name}'")
+            # MySQL MODIFY/CHANGE replaces the whole definition: the
+            # default must be restated or it resets
+            cd = spec.column
+            default = _const_default(cd) if cd.has_default else None
+            new = ColumnInfo(id=old.id, name=cd.name,
+                             offset=old.offset, ft=cd.ft,
+                             default=default,
+                             has_default=cd.has_default or
+                             not cd.ft.not_null)
+            if spec.position == "after":
+                # AFTER resolves against the post-change schema: the
+                # column being moved (old or new name) can't anchor it
+                if spec.after_col.lower() in (old_name.lower(),
+                                              cd.name.lower()) or \
+                        t.col_by_name(spec.after_col) is None:
+                    raise DDLError(
+                        f"Unknown column '{spec.after_col}'")
+            return Job(tp=JobType.MODIFY_COLUMN, schema_id=db.id,
+                       table_id=t.id,
+                       args={"old_name": old_name,
+                             "column": new.to_json(),
+                             "position": spec.position,
+                             "after_col": spec.after_col})
+        if spec.tp in ("set_default", "drop_default"):
+            old = t.col_by_name(spec.name)
+            if old is None:
+                raise DDLError(f"Unknown column '{spec.name}'")
+            # metadata-only change, rides the MODIFY_COLUMN job
+            fake = ast.ColumnDef(name=old.name, ft=old.ft,
+                                 default=spec.default,
+                                 has_default=spec.tp == "set_default")
+            default = _const_default(fake) \
+                if spec.tp == "set_default" else None
+            new = ColumnInfo(id=old.id, name=old.name, offset=old.offset,
+                             ft=old.ft, default=default,
+                             has_default=spec.tp == "set_default" or
+                             not old.ft.not_null,
+                             auto_increment=old.auto_increment)
+            return Job(tp=JobType.MODIFY_COLUMN, schema_id=db.id,
+                       table_id=t.id,
+                       args={"old_name": old.name,
+                             "column": new.to_json()})
+        if spec.tp == "rename":
+            if spec.new_db and spec.new_db.lower() != db.name.lower():
+                raise DDLError("cross-database RENAME is not supported")
+            existing = self._find_table(meta, db.id, spec.name)
+            if existing is not None and existing.id != t.id:
+                raise DDLError(f"table '{spec.name}' exists")
+            return Job(tp=JobType.RENAME_TABLE, schema_id=db.id,
+                       table_id=t.id,
+                       args={"new_name": spec.name,
+                             "new_schema_id": db.id})
+        raise DDLError(f"unsupported ALTER {spec.tp}")
 
 
 # Back-compat alias: the session layer predates the job-based front-end.

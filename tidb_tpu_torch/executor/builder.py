@@ -12,9 +12,8 @@ plain inner HashJoin fuses probe and partial aggregation per probe
 superchunk (executor/agg.py). The plan's output schema (a list of
 plan/resolver.SchemaCol) becomes the operator's `schema`.
 
-The index readers, the index and merge joins, Apply, Union and the
-UPDATE/DELETE executors have no port yet: building one raises ExecError
-("... is not ported yet").
+Apply, Union and the cross join (a keyless HashJoin) have no port yet:
+building one raises ExecError ("... is not ported yet").
 """
 
 from __future__ import annotations
@@ -22,20 +21,20 @@ from __future__ import annotations
 from tidb_tpu_torch.errcode import not_ported
 from tidb_tpu_torch.executor import ExecError
 from tidb_tpu_torch.executor.agg import HashAgg, StreamAgg
-from tidb_tpu_torch.executor.join import HashJoin
-from tidb_tpu_torch.executor.reader import TableReader
+from tidb_tpu_torch.executor.join import HashJoin, IndexJoin, MergeJoin
+from tidb_tpu_torch.executor.reader import (IndexLookUp, IndexReader,
+                                            TableReader)
 from tidb_tpu_torch.executor.root import (FinalAgg, Limit, PointGet,
                                           Projection, Selection, Sort, TopN,
                                           Values)
-from tidb_tpu_torch.executor.write import Insert
+from tidb_tpu_torch.executor.write import (Delete, Insert, MultiDelete,
+                                           MultiUpdate, Update)
 from tidb_tpu_torch.plan import physical as ph
 
 __all__ = ["build"]
 
 # plan nodes the reference executes and the port does not yet
-_UNPORTED = (ph.PhysIndexReader, ph.PhysIndexLookUp, ph.PhysIndexJoin,
-             ph.PhysMergeJoin, ph.PhysApply, ph.PhysUnion, ph.PhysUpdate,
-             ph.PhysDelete, ph.PhysMultiUpdate, ph.PhysMultiDelete)
+_UNPORTED = (ph.PhysApply, ph.PhysUnion)
 
 
 def build(plan):
@@ -56,6 +55,16 @@ def _table_reader(p: ph.PhysTableReader):
     op = TableReader(p.cop, keep_order=p.keep_order)
     op.schema = _cols(p)
     return op
+
+
+def _index_reader(p: ph.PhysIndexReader):
+    op = IndexReader(p.cop, keep_order=getattr(p, "keep_order", False))
+    op.schema = _cols(p)
+    return op
+
+
+def _index_lookup(p: ph.PhysIndexLookUp):
+    return IndexLookUp(p.index_cop, p.table_cop, p.keep_order, _cols(p))
 
 
 def _point_get(p: ph.PhysPointGet):
@@ -98,6 +107,23 @@ def _hash_join(p: ph.PhysHashJoin):
     return op
 
 
+def _merge_join(p: ph.PhysMergeJoin):
+    op = MergeJoin(build(p.children[0]), build(p.children[1]),
+                   p.left_keys, p.right_keys, join_type=p.join_type,
+                   other_cond=p.other_cond)
+    op.schema = _cols(p)
+    return op
+
+
+def _index_join(p: ph.PhysIndexJoin):
+    # the inner reader carries the CopPlan and schema; it is never scanned
+    op = IndexJoin(build(p.children[0]), build(p.children[1]),
+                   p.left_keys, p.right_keys, p.inner_index,
+                   join_type=p.join_type, other_cond=p.other_cond)
+    op.schema = _cols(p)
+    return op
+
+
 def _selection(p: ph.PhysSelection):
     return Selection(build(p.children[0]), p.cond, _cols(p))
 
@@ -130,18 +156,42 @@ def _insert(p: ph.PhysInsert):
                   ignore=p.ignore)
 
 
+def _update(p: ph.PhysUpdate):
+    return Update(p.table, build(p.reader), p.assignments)
+
+
+def _delete(p: ph.PhysDelete):
+    return Delete(p.table, build(p.reader))
+
+
+def _multi_update(p: ph.PhysMultiUpdate):
+    return MultiUpdate(p.targets, build(p.reader))
+
+
+def _multi_delete(p: ph.PhysMultiDelete):
+    return MultiDelete(p.targets, build(p.reader))
+
+
 _BUILDERS = {
     ph.PhysTableReader: _table_reader,
+    ph.PhysIndexReader: _index_reader,
+    ph.PhysIndexLookUp: _index_lookup,
     ph.PhysPointGet: _point_get,
     ph.PhysValues: _values,
     ph.PhysFinalAgg: _final_agg,
     ph.PhysHashAgg: _hash_agg,
     ph.PhysStreamAgg: _stream_agg,
     ph.PhysHashJoin: _hash_join,
+    ph.PhysMergeJoin: _merge_join,
+    ph.PhysIndexJoin: _index_join,
     ph.PhysSelection: _selection,
     ph.PhysProjection: _projection,
     ph.PhysLimit: _limit,
     ph.PhysSort: _sort,
     ph.PhysTopN: _topn,
     ph.PhysInsert: _insert,
+    ph.PhysUpdate: _update,
+    ph.PhysDelete: _delete,
+    ph.PhysMultiUpdate: _multi_update,
+    ph.PhysMultiDelete: _multi_delete,
 }

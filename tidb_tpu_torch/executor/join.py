@@ -1,4 +1,5 @@
-"""The hash join operator: the port of the JAX package's HashJoinExec.
+"""The join operators: the ports of the JAX package's HashJoinExec,
+MergeJoinExec and IndexJoinExec (the last two at the end of the file).
 
 Equi-join with the build side the right child, probe chunks streaming
 from the left. The build side is materialized once; then, by size:
@@ -33,23 +34,30 @@ probes take a scheduler slot per in-flight token (ops/runtime.
 pipeline_map), the per-chunk path one per sync call (sched.device_slot).
 
 Left out: the mesh shuffle kernel (the multi-device plane), the cross
-join, MergeJoinExec and the runtime-stats hooks.
+join and the runtime-stats hooks.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from tidb_tpu_torch import config, memtrack, sched
+from tidb_tpu_torch import config, kv, memtrack, sched, tablecodec
+from tidb_tpu_torch import ranger as rg
 from tidb_tpu_torch.chunk import Chunk, Column
+from tidb_tpu_torch.executor.reader import txn_is_dirty
+from tidb_tpu_torch.executor.write import _index_datum
+from tidb_tpu_torch.kv import CopRequest, ReqType
 from tidb_tpu_torch.ops import hybrid as op_hybrid
 from tidb_tpu_torch.ops import runtime as op_runtime
 from tidb_tpu_torch.ops.join import (JoinKernel, JoinKeyEncoder,
                                      host_match_pairs)
 from tidb_tpu_torch.ops.runtime import eval_filter_host
+from tidb_tpu_torch.plan.physical import CopPlan
 from tidb_tpu_torch.sqltypes import EvalType, np_dtype_for, object_fill
+from tidb_tpu_torch.store.copr import exec_cop_plan
+from tidb_tpu_torch.table import index_kvrows_to_chunk, kvrows_to_chunk
 
-__all__ = ["HashJoin"]
+__all__ = ["HashJoin", "MergeJoin", "IndexJoin"]
 
 
 class HashJoin:
@@ -598,3 +606,252 @@ class HashJoin:
         for c in build.columns:
             cols.append(Column(c.ft, c.data[un], c.valid[un]))
         return Chunk(cols)
+
+
+class MergeJoin(HashJoin):
+    """Streaming sorted-merge equi-join (ref: executor/merge_join.go:34).
+
+    Contract (planner-enforced): both children deliver rows ascending by
+    their single join key — pk-handle table scans arrive in handle order,
+    keep_order index readers in index order. Only a sliding window of the
+    right side (rows whose key may still match a later left chunk) is
+    kept, so neither side is materialized whole: memory is O(chunk +
+    widest equal-key run). Matching is one vectorized searchsorted per
+    left chunk, on the host (the inputs are already sorted)."""
+
+    def chunks(self, ctx):
+        right_iter = self.right.chunks(ctx)
+        window = None          # right rows that may still match
+        right_done = False
+        tracked_w = 0          # the window, on this operator's ledger
+
+        def right_key(ch):
+            return self._eval_keys(self.right_keys, ch)[0]
+
+        try:
+            for chunk in self.left.chunks(ctx):
+                n = chunk.num_rows
+                if n == 0:
+                    continue
+                lk, lv = self._eval_keys(self.left_keys, chunk)[0]
+                has_valid = bool(np.any(lv))
+                lmax = lk[lv].max() if has_valid else None
+                # grow the window until its tail key passes this chunk's
+                # largest key
+                while not right_done and has_valid:
+                    wd, wv = (right_key(window) if window is not None
+                              and window.num_rows else (None, None))
+                    if wd is not None and len(wd) and wv[-1] and \
+                            wd[-1] > lmax:
+                        break
+                    nxt = next(right_iter, None)
+                    if nxt is None:
+                        right_done = True
+                        break
+                    window = nxt if window is None else window.concat(nxt)
+                tracked_w = memtrack.track_to(
+                    self, memtrack.chunk_bytes(window)
+                    if window is not None else 0, tracked_w)
+                if window is None or window.num_rows == 0:
+                    empty = np.empty(0, np.int64)
+                    unmatched = np.arange(n) if self.join_type == "left" \
+                        else empty
+                    out = self._emit(chunk, Chunk(self._null_columns(
+                        self.right.schema, 0)), empty, empty, unmatched)
+                    if out is not None and out.num_rows:
+                        yield out
+                    continue
+                wd, wv = right_key(window)
+                val_idx = np.flatnonzero(wv)
+                wdv = wd[val_idx]
+                lo = np.searchsorted(wdv, lk, side="left")
+                hi = np.searchsorted(wdv, lk, side="right")
+                counts = np.where(lv, hi - lo, 0)
+                total = int(counts.sum())
+                li = np.repeat(np.arange(n), counts)
+                cs = np.concatenate(([0], np.cumsum(counts)[:-1]))
+                w = np.arange(total) - np.repeat(cs, counts)
+                ri = val_idx[np.repeat(lo, counts) + w] if total else \
+                    np.empty(0, np.int64)
+                pair = None
+                if self.other_cond is not None and len(li):
+                    pair = self._gather(chunk, window, li, ri)
+                    keep = eval_filter_host(self.other_cond, pair)
+                    li, ri = li[keep], ri[keep]
+                    pair = pair.filter(keep)
+                unmatched = np.empty(0, np.int64)
+                if self.join_type == "left":
+                    m = np.zeros(n, dtype=bool)
+                    m[li] = True
+                    unmatched = np.flatnonzero(~m)
+                out = self._emit(chunk, window, li, ri, unmatched, pair=pair)
+                if out is not None and out.num_rows:
+                    yield out
+                # slide: right rows below this chunk's largest key can
+                # never match again (left keys do not decrease)
+                if has_valid and window.num_rows:
+                    keep = ~wv | (wd >= lmax)
+                    if not keep.all():
+                        window = window.filter(keep)
+                        tracked_w = memtrack.track_to(
+                            self, memtrack.chunk_bytes(window), tracked_w)
+        finally:
+            memtrack.release(self, host=tracked_w)
+
+
+class IndexJoin(HashJoin):
+    """Index nested-loop join (ref: executor/index_lookup_join.go:87).
+
+    Streams the outer (left) side; per outer chunk, collects the distinct
+    valid join-key values and fetches only the matching inner rows —
+    by batched pk point reads where the key is the handle
+    (`inner_index` None), else by synthesized point ranges over
+    `inner_index` through the coprocessor. The fetched batch then joins
+    the chunk through the pair matcher (ops/join.JoinKernel on the
+    statement's device; host_match_pairs with `tidb_tpu_device = 0`).
+    The inner table is never scanned. In a transaction that wrote the
+    inner table the same point reads go through its union store.
+    `right` is the inner TableReader: its CopPlan (`right.cop`) and
+    schema; it is never run as a scan."""
+
+    def __init__(self, left, right, left_keys, right_keys, inner_index,
+                 join_type: str = "inner", other_cond=None):
+        super().__init__(left, right, left_keys, right_keys,
+                         join_type=join_type, other_cond=other_cond)
+        self.inner_index = inner_index
+
+    def _fetch_inner(self, ctx, key_vals: np.ndarray):
+        """Inner rows whose key is in key_vals (distinct, non-null)."""
+        icop = self.right.cop
+        dirty = txn_is_dirty(ctx, icop.table.id)
+        if self.inner_index is None:
+            handles = [int(v) for v in key_vals]
+            if dirty:
+                return self._dirty_rows_by_handles(ctx, icop, handles)
+            return self._rows_by_handles(ctx, icop, handles)
+        # secondary index: scan the key points' entries for handles, then
+        # batch-fetch the rows (the per-batch form of IndexLookUp)
+        ft = self.right_keys[0].ft
+        ranges = [rg.DatumRange(low=[_index_datum(v, ft)],
+                                high=[_index_datum(v, ft)])
+                  for v in key_vals]
+        kv_ranges = rg.index_ranges_to_kv(icop.table.id,
+                                          self.inner_index.id, ranges)
+        index_cols = [icop.table.col_by_name(c)
+                      for c in self.inner_index.columns]
+        if dirty:
+            # point index ranges through the union store: its entries
+            # (and tombstones) shadow the snapshot's; one range scan per
+            # distinct key of the outer chunk
+            rows = []
+            for rng in kv_ranges:
+                rows.extend(ctx.txn.iter_range(rng.start, rng.end))
+            ich = index_kvrows_to_chunk(icop.table, self.inner_index,
+                                        index_cols, rows, len(index_cols))
+            hc = ich.columns[len(index_cols)]
+            return self._dirty_rows_by_handles(
+                ctx, icop, [int(h) for h in hc.data[:ich.num_rows]])
+        index_cop = CopPlan(table=icop.table, cols=index_cols,
+                            handle_col=len(index_cols),
+                            index=self.inner_index, ranges=kv_ranges)
+        req = CopRequest(tp=ReqType.DAG, ranges=kv_ranges, plan=index_cop,
+                         start_ts=ctx.read_ts)
+        handles: list[int] = []
+        for resp in ctx.storage.client().send(req):
+            hc = resp.chunk.columns[len(index_cols)]
+            handles.extend(int(h) for h in hc.data[:resp.chunk.num_rows])
+        return self._rows_by_handles(ctx, icop, handles)
+
+    @staticmethod
+    def _cop_over(ctx, icop, kvrows):
+        chunk = kvrows_to_chunk(icop.table, icop.cols, kvrows,
+                                icop.handle_col)
+        return exec_cop_plan(icop, chunk, device=ctx.device).chunk
+
+    def _rows_by_handles(self, ctx, icop, handles):
+        snap = ctx.storage.snapshot(ctx.read_ts)
+        keys = [tablecodec.record_key(icop.table.id, h) for h in handles]
+        got = snap.batch_get(keys)
+        return self._cop_over(ctx, icop,
+                              [(k, got[k]) for k in keys if k in got])
+
+    def _dirty_rows_by_handles(self, ctx, icop, handles):
+        """Point reads with the write buffer overlaid on ONE batched
+        snapshot read: own inserts appear, own deletes vanish."""
+        keys = [tablecodec.record_key(icop.table.id, h)
+                for h in dict.fromkeys(int(h) for h in handles)]
+        membuf = ctx.txn.us.membuf
+        dirty_vals = {}
+        clean = []
+        for k in keys:
+            v = membuf.get(k)
+            if v is None:
+                clean.append(k)
+            else:
+                dirty_vals[k] = v
+        got = ctx.txn.snapshot.batch_get(clean) if clean else {}
+        kvrows = []
+        for k in keys:
+            v = dirty_vals.get(k)
+            if v is None:
+                v = got.get(k)
+            elif v is kv._TOMBSTONE:     # own delete shadows the snapshot
+                continue
+            if v is not None:
+                kvrows.append((k, v))
+        return self._cop_over(ctx, icop, kvrows)
+
+    def chunks(self, ctx):
+        self._kernel = JoinKernel(len(self.left_keys), device=ctx.device)
+        tracked = 0
+        try:
+            for chunk in self.left.chunks(ctx):
+                n = chunk.num_rows
+                if n == 0:
+                    continue
+                kd, kvalid = self.left_keys[0].eval(chunk)
+                kd, kvalid = np.asarray(kd), np.asarray(kvalid, dtype=bool)
+                vals = np.unique(kd[kvalid]) if kvalid.any() else kd[:0]
+                build = self._fetch_inner(ctx, vals) if len(vals) else \
+                    Chunk(self._null_columns(self.right.schema, 0))
+                # the per-outer-batch inner build, tracked to its successor
+                tracked = memtrack.track_to(
+                    self, memtrack.chunk_bytes(build), tracked)
+                nb = build.num_rows
+                if nb == 0:
+                    if self.join_type == "left":
+                        empty = np.empty(0, np.int64)
+                        out = self._emit(chunk, build, empty, empty,
+                                         np.arange(n))
+                        if out is not None and out.num_rows:
+                            yield out
+                    continue
+                enc = JoinKeyEncoder(len(self.right_keys))  # per batch
+                bk = enc.fit_build(self._eval_keys(self.right_keys, build))
+                pk = enc.transform_probe(self._eval_keys(self.left_keys,
+                                                         chunk))
+                if config.device_enabled():
+                    ctx.stats.join_dispatches += 1
+                    with sched.device_slot(), memtrack.device_scope(
+                            self, self._kernel.build_nbytes(nb) +
+                            self._kernel.dispatch_nbytes(n)):
+                        li, ri = self._kernel(bk, pk, nb, n)
+                else:
+                    ctx.stats.host_match_batches += 1
+                    li, ri = host_match_pairs(bk, pk, nb, n)
+                pair = None
+                if self.other_cond is not None and len(li):
+                    pair = self._gather(chunk, build, li, ri)
+                    keep = eval_filter_host(self.other_cond, pair)
+                    li, ri = li[keep], ri[keep]
+                    pair = pair.filter(keep)
+                unmatched = np.empty(0, np.int64)
+                if self.join_type == "left":
+                    m = np.zeros(n, dtype=bool)
+                    m[li] = True
+                    unmatched = np.flatnonzero(~m)
+                out = self._emit(chunk, build, li, ri, unmatched, pair=pair)
+                if out is not None and out.num_rows:
+                    yield out
+        finally:
+            memtrack.release(self, host=tracked)

@@ -220,10 +220,21 @@ class MemBuffer:
         return len(self._d)
 
     def iter_range(self, start: bytes | None, end: bytes | None):
-        """Yields (key, value_or_tombstone) in [start, end) order."""
-        keys = self._d.irange(start, end, inclusive=(True, False))
+        """Yields (key, value_or_tombstone) in [start, end) order, over
+        the keys the range held when the iteration began: a DML statement
+        writes into this buffer while its union scan is still iterating
+        it (the JAX package's copy iterates the live tree, which
+        `sortedcontainers` may split under the iterator)."""
+        keys = list(self._d.irange(start, end, inclusive=(True, False)))
         for k in keys:
             yield k, self._d[k]
+
+    def any_in_range(self, start: bytes, end: bytes) -> bool:
+        """Does the buffer hold a key in [start, end)? (A bisect: the
+        union scan asks this of every statement of a transaction.)"""
+        i = self._d.bisect_left(start)
+        keys = self._d.keys()
+        return i < len(keys) and keys[i] < end
 
     def items(self):
         return self.iter_range(None, None)

@@ -10,13 +10,25 @@ executor.build_executor on the device of the storage (`storage.device`:
 CUDA unless the storage was made on another device). `query(sql)`
 returns the first ResultSet.
 
-Statements: CREATE/DROP DATABASE, CREATE/DROP TABLE, USE, SET (session
-and GLOBAL sysvars, user variables), INSERT in autocommit, SELECT,
-EXPLAIN (without ANALYZE) and ANALYZE TABLE. Every other statement kind
-raises SQLError naming it as not ported yet: BEGIN/COMMIT/ROLLBACK
-(transactions with dirty reads), UPDATE, DELETE, SHOW, PREPARE/EXECUTE,
-TRACE, LOAD DATA, the account statements and grants, ADMIN, KILL, and
-the DDL that ddl/ refuses.
+Statements: the DDL (CREATE/DROP DATABASE and TABLE, TRUNCATE, RENAME,
+CREATE/DROP INDEX, ALTER TABLE: an open transaction commits first), USE,
+SET (session and GLOBAL sysvars, user variables, `autocommit`),
+BEGIN/COMMIT/ROLLBACK, INSERT, UPDATE and DELETE (single- and
+multi-table), SELECT (with FOR UPDATE), EXPLAIN (without ANALYZE) and
+ANALYZE TABLE. Every other statement kind raises SQLError naming it as
+not ported yet: SHOW, PREPARE/EXECUTE, TRACE, LOAD DATA, the account
+statements and grants, ADMIN, KILL.
+
+Transactions (ref: session.go:287 doCommitWithRetry, :393 retry): a
+statement reads at the open transaction's start_ts through its union
+store, else at a fresh ts. A DML statement runs in the open transaction
+(or an implicit one, committed at once under autocommit, kept open
+under `autocommit = 0`) and is atomic: a failed statement restores the
+write buffer as it found it. COMMIT retries a retryable conflict up to
+COMMIT_RETRY_LIMIT times by replaying the transaction's statements on a
+fresh one, unless it took FOR UPDATE locks; the schema check at commit
+refuses a transaction whose written tables a later schema version
+changed.
 
 Each non-internal statement is one memtrack statement root (carrying
 tidb_tpu_mem_quota_query, under the session's root) and one meter entry
@@ -63,6 +75,8 @@ from tidb_tpu_torch.sqltypes import (EvalType, TypeCode, format_datetime,
                                      format_duration, scaled_to_decimal)
 
 __all__ = ["Session", "ResultSet", "Domain", "SQLError"]
+
+COMMIT_RETRY_LIMIT = 10  # ref: tidb.go:109 commitRetryLimit
 
 _session_seq = 0
 _session_seq_lock = threading.Lock()
@@ -146,6 +160,7 @@ class Session:
         self.host = host
         self.internal = internal
         self.txn: kv.Transaction | None = None
+        self._history: list = []     # the open txn's DML, for a retry
         self.autocommit = True
         self.vars: dict[str, object] = {}
         self.sys_vars: dict[str, object] = {"autocommit": 1,
@@ -277,10 +292,73 @@ class Session:
             self.killed = False
         return res
 
+    # -- txn lifecycle -------------------------------------------------------
+
+    def _attach_schema_checker(self, txn) -> None:
+        start_ver = self.domain.info_schema().version
+        txn.schema_checker = lambda: self._check_schema_valid(
+            start_ver, txn.related_tables)
+
+    def _begin_txn(self):
+        if self.txn is None:
+            self.txn = self.storage.begin()
+            self._history = []
+            self._attach_schema_checker(self.txn)
+        return self.txn
+
+    def _read_ts(self) -> int:
+        if self.txn is not None:
+            return self.txn.start_ts
+        return self.storage.current_ts()
+
+    def _commit(self):
+        """Commit with optimistic retry: on a retryable conflict, replay
+        the transaction's statement history at a fresh ts."""
+        txn = self.txn
+        self.txn = None
+        if txn is None:
+            return
+        history = self._history
+        self._history = []
+        # one span covers the first attempt and the replays
+        with trace.span("commit") as cspan:
+            try:
+                txn.commit()
+                return
+            except kv.UndeterminedError:
+                raise
+            except kv.RetryableError as first_err:
+                if txn.for_update:
+                    # FOR UPDATE promised the read rows stayed put:
+                    # replaying silently would break that promise
+                    raise
+                last = first_err
+                for _ in range(COMMIT_RETRY_LIMIT):
+                    cspan.tags["retries"] = \
+                        cspan.tags.get("retries", 0) + 1
+                    retry_txn = self.storage.begin()
+                    self._attach_schema_checker(retry_txn)
+                    try:
+                        self.txn = retry_txn
+                        for stmt in history:
+                            self._exec_dml_in_txn(stmt)
+                        self.txn = None
+                        retry_txn.commit()
+                        return
+                    except kv.RetryableError as e:
+                        self.txn = None
+                        last = e
+                    except Exception:
+                        self.txn = None
+                        retry_txn.rollback()
+                        raise
+                raise last
+
     def _rollback(self):
         if self.txn is not None:
             self.txn.rollback()
             self.txn = None
+        self._history = []
 
     # -- dispatch ------------------------------------------------------------
 
@@ -288,11 +366,25 @@ class Session:
         if isinstance(stmt, ast.SelectStmt):
             stmt, _ = self._fold_session_exprs(stmt)
             return self._exec_query(stmt)
-        if isinstance(stmt, ast.InsertStmt):
+        if isinstance(stmt, (ast.InsertStmt, ast.UpdateStmt,
+                             ast.DeleteStmt)):
             stmt, _ = self._fold_session_exprs(stmt)
-            return self._exec_insert(stmt)
+            return self._exec_dml(stmt)
         if isinstance(stmt, _DDL_STMTS):
+            if self.txn is not None:
+                self._commit()  # implicit commit before DDL (MySQL)
             return self._exec_ddl(stmt)
+        if isinstance(stmt, ast.BeginStmt):
+            if self.txn is not None:
+                self._commit()
+            self._begin_txn()
+            return None
+        if isinstance(stmt, ast.CommitStmt):
+            self._commit()
+            return None
+        if isinstance(stmt, ast.RollbackStmt):
+            self._rollback()
+            return None
         if isinstance(stmt, ast.UseStmt):
             ischema = self.domain.info_schema()
             if stmt.db.lower() != "information_schema" and \
@@ -329,8 +421,13 @@ class Session:
                            interrupted=lambda: self.killed)
 
     def _exec_query(self, stmt) -> ResultSet:
+        if getattr(stmt, "for_update", False) and self.txn is None and \
+                not self.autocommit:
+            # autocommit=0: the SELECT starts the transaction, so its
+            # locks hold until COMMIT (MySQL)
+            self._begin_txn()
         plan = self._plan(stmt)
-        ctx = self._context(self.storage.current_ts())
+        ctx = self._context(self._read_ts(), self.txn)
         coll = rs.StatsCollector()
         launches = segsum.launches
         try:
@@ -349,6 +446,12 @@ class Session:
             ctx.stats.segsum_launches += segsum.launches - launches
             self.last_stats = ctx.stats
             self.last_collector = coll
+        if getattr(stmt, "for_update", False) and self.txn is not None:
+            try:
+                self._lock_rows_for_update(stmt)
+            except ExecError as e:
+                raise SQLError(str(e)) from None
+        self._check_nested_for_update(stmt)
         t0 = time.perf_counter_ns()
         rows = []
         for ch in chunks:
@@ -358,24 +461,45 @@ class Session:
                          rows=rows,
                          field_types=[c.ft for c in plan.schema.cols])
 
-    # -- INSERT (autocommit) -------------------------------------------------
+    # -- DML -----------------------------------------------------------------
 
-    def _exec_insert(self, stmt) -> int:
-        """One INSERT in its own transaction, committed at the end (the
-        reference's autocommit path; explicit transactions are not
-        ported)."""
-        if not self.autocommit:
-            raise SQLError(not_ported("a DML statement with autocommit=0"))
+    def _exec_dml(self, stmt) -> int:
+        in_txn = self.txn is not None
+        self._begin_txn()
+        # statement-level atomicity: snapshot the write buffer, so a
+        # failed statement rolls back ITS writes without ending the txn
+        membuf = self.txn.us.membuf
+        saved = membuf._d.copy()
+        saved_size = membuf.size
+        saved_presumed = set(self.txn.us.presumed_not_exists)
+        try:
+            n = self._exec_dml_in_txn(stmt)
+        except Exception:
+            if self.txn is not None:
+                self.txn.us.membuf._d = saved
+                self.txn.us.membuf.size = saved_size
+                self.txn.us.presumed_not_exists = saved_presumed
+            if not in_txn and self.autocommit:
+                self._rollback()
+            raise      # autocommit=0 keeps the implicit txn open
+        self._history.append(stmt)
+        self._note_dml_delta(stmt, n)
+        if not in_txn and self.autocommit:
+            self._commit()
+        return n
+
+    def _exec_dml_in_txn(self, stmt) -> int:
+        from tidb_tpu_torch.plan import physical as ph
         plan = self._plan(stmt)
-        txn = self.storage.begin()
-        self.txn = txn
-        # schema validation scope: the table this txn writes
-        txn.related_tables.add(plan.table.id)
-        start_ver = self.domain.info_schema().version
-        txn.schema_checker = lambda: self._check_schema_valid(
-            start_ver, txn.related_tables)
-        ctx = self._context(txn.start_ts, txn)
+        if isinstance(plan, (ph.PhysInsert, ph.PhysUpdate, ph.PhysDelete)):
+            # schema validation scope: the tables this txn WRITES
+            self.txn.related_tables.add(plan.table.id)
+        elif isinstance(plan, (ph.PhysMultiUpdate, ph.PhysMultiDelete)):
+            for target in plan.targets:
+                self.txn.related_tables.add(target[0].id)
+        ctx = self._context(self.txn.start_ts, self.txn)
         coll = rs.StatsCollector()
+        launches = segsum.launches
         try:
             with rs.collecting(coll):
                 exe = build_executor(plan)
@@ -384,20 +508,55 @@ class Session:
             lid = getattr(ctx, "last_insert_id", None)
             if lid is not None:
                 self.last_insert_id = lid
-            self.txn = None
-            with trace.span("commit"):
-                txn.commit()
+            return n
         except ExecError as e:
-            self._rollback()
             raise SQLError(str(e)) from None
-        except BaseException:
-            self._rollback()
-            raise
         finally:
+            ctx.stats.segsum_launches += segsum.launches - launches
             self.last_stats = ctx.stats
             self.last_collector = coll
-        self._note_dml_delta(plan.table.id, n)
-        return n
+
+    def _check_nested_for_update(self, stmt) -> None:
+        """FOR UPDATE buried in a derived table or subquery would take
+        no locks: refuse it."""
+        import dataclasses
+
+        def walk(x, top):
+            if isinstance(x, ast.SelectStmt) and not top and \
+                    x.for_update:
+                raise SQLError("FOR UPDATE is only supported on "
+                               "single-table queries")
+            if dataclasses.is_dataclass(x) and isinstance(x, ast.Node):
+                for f in dataclasses.fields(x):
+                    walk(getattr(x, f.name), False)
+            elif isinstance(x, (list, tuple)):
+                for v in x:
+                    walk(v, False)
+
+        walk(stmt, isinstance(stmt, ast.SelectStmt))
+
+    def _lock_rows_for_update(self, stmt) -> None:
+        """SELECT ... FOR UPDATE inside a txn: lock every row the WHERE
+        matches (ref: executor/executor.go:389 SelectLockExec; keys
+        buffered in the txn, conflict-checked at commit), even under
+        LIMIT, through a second scan of the filter."""
+        from tidb_tpu_torch import tablecodec
+        src = stmt.from_clause
+        if src is None:
+            return                # SELECT 1 FOR UPDATE: nothing to lock
+        if not isinstance(src, ast.TableSource):
+            raise SQLError(
+                "FOR UPDATE is only supported on single-table queries")
+        try:
+            info, reader = self._planner()._plan_writable_reader(
+                src, stmt.where)
+        except (PlanError, ResolveError) as e:
+            raise SQLError(str(e)) from None
+        self.txn.related_tables.add(info.id)
+        ctx = self._context(self.txn.start_ts, self.txn)
+        for chunk in build_executor(reader).chunks(ctx):
+            for h in chunk.columns[-1].data.tolist():
+                self.txn.lock_key(tablecodec.record_key(info.id, int(h)))
 
     def _check_schema_valid(self, start_ver: int, table_ids) -> None:
         """Commit-time schema validation (ref: domain/schema_validator.go:
@@ -407,6 +566,8 @@ class Session:
         try:
             m = Meta(txn)
             cur = m.schema_version()
+            if cur == start_ver:
+                return
             for v in range(start_ver + 1, cur + 1):
                 diff = m.schema_diff(v)
                 if diff is None or any(t in table_ids for t in diff):
@@ -416,26 +577,20 @@ class Session:
         finally:
             txn.rollback()
 
-    def _note_dml_delta(self, table_id: int, n: int) -> None:
-        try:
-            self.domain.stats_handle().note_dml(table_id, n)
-        except Exception:   # noqa: BLE001 - stats bookkeeping never fails DML
-            pass
+    def _note_dml_delta(self, stmt, n: int) -> None:
+        ts = stmt.table
+        if isinstance(ts, ast.TableSource):
+            try:
+                info = self.domain.info_schema().table(
+                    ts.db or self.current_db, ts.name)
+                self.domain.stats_handle().note_dml(info.id, n)
+            except Exception:   # noqa: BLE001 - bookkeeping never fails DML
+                pass
 
     # -- DDL / SET / EXPLAIN / ANALYZE ---------------------------------------
 
     def _exec_ddl(self, stmt):
-        ischema = self.domain.info_schema()
-        dropped = []
-        if isinstance(stmt, ast.DropTableStmt):
-            for ts in stmt.tables:
-                db = ts.db or self.current_db
-                if ischema.has_table(db, ts.name):
-                    dropped.append(ischema.table(db, ts.name).id)
-        elif isinstance(stmt, ast.DropDatabaseStmt) and \
-                ischema.has_db(stmt.name):
-            dropped = [ischema.table(stmt.name, n).id
-                       for n in ischema.table_names(stmt.name)]
+        dropped = self._dropped_table_ids(stmt)
         try:
             DDLExecutor(self.storage).execute(stmt, self.current_db,
                                               domain=self.domain)
@@ -444,6 +599,26 @@ class Session:
         for tid in dropped:
             self.domain.stats_handle().drop(tid)
         return None
+
+    def _dropped_table_ids(self, stmt) -> list:
+        """Table ids about to be dropped or truncated (their statistics
+        go with them)."""
+        ischema = self.domain.info_schema()
+        sources = []
+        if isinstance(stmt, ast.DropTableStmt):
+            sources = stmt.tables
+        elif isinstance(stmt, ast.TruncateTableStmt):
+            sources = [stmt.table]
+        elif isinstance(stmt, ast.DropDatabaseStmt):
+            if ischema.has_db(stmt.name):
+                return [ischema.table(stmt.name, n).id
+                        for n in ischema.table_names(stmt.name)]
+        out = []
+        for ts in sources:
+            db = ts.db or self.current_db
+            if ischema.has_table(db, ts.name):
+                out.append(ischema.table(db, ts.name).id)
+        return out
 
     def _exec_set(self, stmt: ast.SetStmt):
         import dataclasses
