@@ -124,8 +124,9 @@ def test_second_worker_is_not_leader():
 
 
 def _owner_versions(storage) -> int:
-    """Versions of the reference's DDL owner lease (`m_owner_ddl`), the
-    one key the port does not write: the GC prunes all but its newest."""
+    """Versions of the DDL owner lease (`m_owner_ddl`), renewed by each
+    DDL in both packages: the GC prunes all but its newest, and the
+    scenarios count the table's keys and versions without it."""
     return len(storage.engine.mvcc_by_key(b"m_owner_ddl")["writes"])
 
 

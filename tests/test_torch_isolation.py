@@ -1,10 +1,13 @@
 """The port stands alone: tidb_tpu_torch imports neither jax nor
 tidb_tpu (by AST scan of every module, the storage path's, the device
-plane's and the SQL stack's included, and by sys.modules after CPU runs
-of Q1, Q18's inner block, Q1, Q3 and Q5 through the store under the
-device plane, and Q1 as SQL through the port's Session, in a fresh
-process), and its entry points run on CUDA unless told otherwise,
-raising where there is none instead of quietly running on the CPU."""
+plane's, the SQL stack's and the server's included, and by sys.modules
+after CPU runs of Q1, Q18's inner block, Q1, Q3 and Q5 through the store
+under the device plane, Q1 as SQL through the port's Session, and Q1
+over the wire through the port's Server, in a fresh process), and its
+entry points run on CUDA unless told otherwise, raising where there is
+none instead of quietly running on the CPU; `python -m tidb_tpu_torch`
+without `--device cpu` exits non-zero there instead of serving on the
+CPU."""
 
 import ast
 import json
@@ -49,6 +52,19 @@ def test_no_forbidden_import(path):
 # the subpackages of the SQL stack, each scanned by the test above
 SQL_STACK = ("parser", "plan", "ddl", "meta", "structure", "session",
              "ranger", "schema", "statistics", "expression", "executor")
+
+
+# the server slice's modules, each scanned by the test above
+SERVER_SLICE = ("server/__init__.py", "server/packet.py", "server/status.py",
+                "__main__.py", "privilege.py", "bootstrap.py", "owner.py",
+                "perfschema.py", "metrics_history.py", "errcode.py")
+
+
+@pytest.mark.parametrize("mod", SERVER_SLICE)
+def test_server_slice_module_is_scanned(mod):
+    path = PKG / mod
+    assert path in set(PKG.rglob("*.py"))
+    assert not [n for n in _imports(path) if _forbidden(n)], mod
 
 
 @pytest.mark.parametrize("sub", SQL_STACK)
@@ -102,6 +118,33 @@ tpch.load(sess, sst, d)
 assert sess.query(tpch.Q1).rows == \
     tpch.as_session_rows("q1", tpch.q1_truth(d))
 assert sess.last_stats.segsum_launches == 0 and sess.last_mem.total() == 0
+import socket, struct, hashlib
+from tidb_tpu_torch.server import Server
+from tidb_tpu_torch.server.packet import PacketIO, read_lenenc_int
+srv = Server(sst, port=0)
+srv.start()
+pk = PacketIO(socket.create_connection(("127.0.0.1", srv.port), timeout=30))
+pk.read_packet()
+pk.write_packet(struct.pack("<II", 0x200 | 0x8000 | 0x80000, 1 << 24)
+                + bytes([33]) + b"\\0" * 23 + b"root\\0" + b"\\0"
+                + b"mysql_native_password\\0")
+assert pk.read_packet()[0] == 0
+pk.reset_seq()
+pk.write_packet(b"\\x02tpch")
+assert pk.read_packet()[0] == 0
+pk.reset_seq()
+pk.write_packet(b"\\x03" + tpch.Q1.encode())
+ncols, _ = read_lenenc_int(pk.read_packet(), 0)
+for _ in range(ncols + 1):
+    pk.read_packet()
+nrows = 0
+while True:
+    p = pk.read_packet()
+    if p[0] == 0xFE and len(p) < 9:
+        break
+    nrows += 1
+assert ncols == 10 and nrows == len(tpch.q1_truth(d)), (ncols, nrows)
+srv.close()
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))))
 """
@@ -173,3 +216,14 @@ def test_entry_points_default_to_cuda():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_main_without_a_card_exits_non_zero():
+    _no_cuda()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-m", "tidb_tpu_torch", "--port",
+                          "0", "--no-status"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr and "MySQL protocol on" not in out.stderr

@@ -6,10 +6,10 @@ fresh mock store.
   * after the same DDL and INSERT sequence through each package's
     Session, every KV pair of the store (meta, schema versions and
     diffs, DDL job history, table records and index entries) is
-    byte-equal, with two differences by design: the reference's DDL
-    owner lease (`m_owner_ddl`; one process is the port's only owner)
-    and the timestamp that seals a dropped table's delete range (an
-    oracle time, different in each run);
+    byte-equal, the DDL owner lease (`m_owner_ddl`) included, with two
+    values masked: that lease's (it names each process's owner id and
+    lease expiry) and the timestamp that seals a dropped table's delete
+    range (an oracle time, different in each run);
   * the TableInfos that CREATE TABLE makes from tpch.DDL have the
     columns, types, flags and primary-key handle of the hand-built
     `tpch.table_infos()` the earlier storage path uses (ids may differ);
@@ -72,8 +72,9 @@ def _store_kv(seq, port: bool):
 
 
 def _unstamped(kvs):
-    """KV pairs without the reference-only owner lease, with the oracle
-    timestamp of each sealed delete range checked and masked."""
+    """KV pairs without the DDL owner lease (its value names each
+    process's owner id and lease expiry), with the oracle timestamp of
+    each sealed delete range checked and masked."""
     out = {}
     for k, v in kvs:
         if k == b"m_owner_ddl":
@@ -91,8 +92,9 @@ def test_ddl_and_insert_kv_pairs_byte_equal(name):
     want = _store_kv(SEQUENCES[name], port=False)
     got = _store_kv(SEQUENCES[name], port=True)
     assert any(k == b"m_owner_ddl" for k, _v in want)
+    assert any(k == b"m_owner_ddl" for k, _v in got)
     assert _unstamped(got) == _unstamped(want)
-    assert len(got) == len(want) - 1
+    assert len(got) == len(want)
 
 
 def _structure_ops(s):

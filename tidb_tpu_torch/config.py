@@ -1,5 +1,5 @@
-"""The sysvars the port's kernels, its storage path, its planner and its
-session read.
+"""The sysvars the port's kernels, its storage path, its planner, its
+session and its server read.
 
 A subset of the JAX package's registry, with the same names, types and
 defaults, so one setting means the same thing in both packages.
@@ -27,12 +27,14 @@ __all__ = ["get_var", "set_var", "session_overlay", "current_overlay",
            "direct_agg_slots", "join_partitions", "skew_threshold",
            "sort_spill_rows", "mem_quota_query", "sched_inflight",
            "sched_inflight_bytes", "dispatch_timeout_ms", "kernel_profile",
-           "kernel_profile_cap", "device_enabled",
-           "is_known", "coerce",
+           "kernel_profile_cap", "device_enabled", "slow_query_ms",
+           "server_mem_quota", "admission_timeout_ms", "stmt_profile_cap",
+           "metrics_history_interval_ms", "metrics_history_points",
+           "all_vars", "is_known", "coerce",
            "SERVER_VERSION", "UnknownVariableError"]
 
-# the version string the reference's server reports (VERSION(), the
-# @@version sysvar); the port has no server of its own yet
+# the version string the server reports (VERSION(), the @@version
+# sysvar, the handshake's greeting)
 SERVER_VERSION = "8.0.11-tidb-tpu-1.0"
 
 
@@ -118,6 +120,25 @@ _DEFS: dict[str, tuple[str, int]] = {
     "tidb_tpu_kernel_profile": (_BOOL, 1),
     # bounded size of the kernel-profile registry (true LRU beyond)
     "tidb_tpu_kernel_profile_cap": (_INT, 512),
+    # statements at/above this wall time land in the slow-query log
+    # (ref: config.Log.SlowThreshold, default 300ms)
+    "tidb_tpu_slow_query_ms": (_INT, 300),
+    # server-wide memory quota in bytes over the memtrack SERVER root
+    # (host + device) for statement admission (sched.AdmissionController);
+    # 0 = admission off. A statement whose digest's recorded peak does
+    # not fit sheds the server's caches, then queues up to
+    # tidb_tpu_admission_timeout_ms, then is rejected with the retryable
+    # ER_SERVER_BUSY_ADMISSION (9008), never a mid-query OOM cancel
+    "tidb_tpu_server_mem_quota": (_INT, 0),
+    # bounded admission-queue wait before a statement is rejected with
+    # the retryable 9008 (milliseconds)
+    "tidb_tpu_admission_timeout_ms": (_INT, 1000),
+    # bounded size of perfschema's per-digest mode-history memo
+    "tidb_tpu_stmt_profile_cap": (_INT, 1024),
+    # metrics-history sampler cadence (metrics_history.py); 0 = idle
+    "tidb_tpu_metrics_history_interval_ms": (_INT, 1000),
+    # metrics-history ring capacity in points
+    "tidb_tpu_metrics_history_points": (_INT, 512),
 }
 
 _vals: dict[str, int] = {}
@@ -193,6 +214,15 @@ def set_var(name: str, value) -> None:
         raise UnknownVariableError(name)
     with _lock:
         _vals[key] = _coerce(_DEFS[key][0], value)
+
+
+def all_vars() -> dict[str, int]:
+    """Effective values on this thread (session overlay applied)."""
+    out = dict(_vals)
+    ov = getattr(_tls, "overlay", None)
+    if ov:
+        out.update(ov)
+    return out
 
 
 def is_known(name: str) -> bool:
@@ -315,3 +345,27 @@ def kernel_profile() -> bool:
 
 def kernel_profile_cap() -> int:
     return min(max(16, _read("tidb_tpu_kernel_profile_cap")), 1 << 16)
+
+
+def slow_query_ms() -> int:
+    return _read("tidb_tpu_slow_query_ms")
+
+
+def server_mem_quota() -> int:
+    return max(0, _read("tidb_tpu_server_mem_quota"))
+
+
+def admission_timeout_ms() -> int:
+    return max(0, _read("tidb_tpu_admission_timeout_ms"))
+
+
+def stmt_profile_cap() -> int:
+    return min(max(16, _read("tidb_tpu_stmt_profile_cap")), 1 << 16)
+
+
+def metrics_history_interval_ms() -> int:
+    return max(0, _read("tidb_tpu_metrics_history_interval_ms"))
+
+
+def metrics_history_points() -> int:
+    return min(max(16, _read("tidb_tpu_metrics_history_points")), 1 << 16)

@@ -2,8 +2,10 @@
 
 The port's copy of the JAX package's ddl/__init__.py: CREATE/DROP
 DATABASE, CREATE/DROP TABLE, TRUNCATE, RENAME, CREATE/DROP INDEX and
-ALTER TABLE, each job run to the end by the in-process worker (one
-process is the only owner: no election, no remote wait).
+ALTER TABLE. Any session may accept a DDL; only the holder of the DDL
+owner lease (owner.py, taken through the session's Domain) runs its job,
+inline when no background schema worker runs, else the worker's tick
+runs it and the submitter waits for the job's history record.
 
 Reference: TiDB's ddl/ddl_api.go (validation + job build),
 ddl/ddl.go:406 doDDLJob (enqueue, then wait for the owner's worker to
@@ -40,23 +42,82 @@ class DDL:
         self.storage = storage
         self.worker = worker or DDLWorker(storage)
 
+    # submitters poll the history queue this long for a remote owner to
+    # finish their job (ref: ddl.go doDDLJob's wait loop)
+    REMOTE_JOB_TIMEOUT = 30.0
+
     def execute(self, stmt: ast.StmtNode, current_db: str,
                 domain=None) -> None:
         m = getattr(self, "_build_" + type(stmt).__name__, None)
         if m is None:
             raise DDLError(f"unsupported DDL {type(stmt).__name__}")
-        # one process is the only owner: each job runs here, to the end
-        # (the reference's owner election and remote wait are not ported).
-        # Build + run jobs one at a time: later specs of one ALTER
-        # validate against the schema the earlier ones produced.
-        for build in m(stmt, current_db):
+        # Build + run jobs one at a time: later specs of one ALTER validate
+        # against the schema the earlier ones produced.
+        builders = m(stmt, current_db)
+        for build in builders:
             job = self._enqueue(build)
             if job is None:
                 continue
+            # any server may ACCEPT the DDL; only the lease owner RUNS it
+            # (ref: ddl.go:406 doDDLJob -> owner's worker loop). With no
+            # competing owner the campaign wins instantly and the job
+            # runs here, preserving single-node synchronous semantics.
+            # A domain with a live background schema worker never runs
+            # inline — two steppers on one queue would conflict.
+            if domain is not None and domain.schema_worker_running():
+                self._wait_remote_job(job.id)
+                continue
+            if domain is None:
+                try:
+                    self.worker.run_job(job.id)
+                except JobFailed as e:
+                    raise DDLError(str(e)) from None
+                continue
+            owner = domain.ddl_owner()
+            if not owner.campaign():
+                self._wait_remote_job(job.id)
+                continue
+
+            def between_steps():
+                # per-version convergence (the F1 two-version invariant
+                # the background tick also enforces) + lease renewal so
+                # a long backfill can't silently lose ownership
+                domain.wait_schema_convergence(
+                    domain.info_schema().version)
+                return owner.campaign()
+
+            from tidb_tpu_torch import kv as _kv
             try:
-                self.worker.run_job(job.id)
+                done = self.worker.run_job(job.id,
+                                           between_steps=between_steps)
             except JobFailed as e:
                 raise DDLError(str(e)) from None
+            except _kv.RetryableError:
+                # a competing stepper got the transition in first: the
+                # job is still progressing — wait for it like a remote
+                self._wait_remote_job(job.id)
+                continue
+            if not done.finished:
+                # lost the lease mid-job: the new owner continues it
+                self._wait_remote_job(job.id)
+
+    def _wait_remote_job(self, job_id: int) -> None:
+        """Poll history until the owning server finishes the job."""
+        import time as _time
+        deadline = _time.time() + self.REMOTE_JOB_TIMEOUT
+        while _time.time() < deadline:
+            txn = self.storage.begin()
+            try:
+                done = Meta(txn).history_job(job_id)
+            finally:
+                txn.rollback()
+            if done is not None:
+                if getattr(done, "error", None):
+                    raise DDLError(str(done.error))
+                return
+            _time.sleep(0.02)
+        raise DDLError(f"DDL job {job_id} timed out waiting for the "
+                       "owner; is the owner alive?")
 
     def _enqueue(self, build) -> Job | None:
         """Run `build(meta) -> Job|None` and enqueue in one meta txn."""

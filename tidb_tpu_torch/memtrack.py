@@ -40,7 +40,9 @@ import threading
 from tidb_tpu_torch import metrics
 
 __all__ = ["MemTracker", "QuotaExceededError", "SERVER", "tracking",
-           "suspended", "current", "session_root", "statement_root",
+           "suspended", "current", "check_interrupted",
+           "session_root",
+           "statement_root",
            "server_node", "op_node", "consume", "release", "device_scope",
            "track_to", "register_spill", "chunk_bytes", "result_bytes",
            "device_put_bytes",
@@ -64,7 +66,7 @@ class MemTracker:
                  "host", "device", "host_peak", "device_peak",
                  "total_peak", "device_at_peak",
                  "_actions", "_firing", "_cancel_msg", "_nodes",
-                 "children", "fault_degraded")
+                 "children", "fault_degraded", "interrupted")
 
     def __init__(self, label: str, parent: "MemTracker | None" = None,
                  quota: int = 0, on_cancel=None):
@@ -88,6 +90,10 @@ class MemTracker:
         # statement roots only: sched.degrade_statement latched this
         # statement onto the host path after a retried device fault
         self.fault_degraded = False
+        # statement roots only: the session's KILL QUERY probe
+        # (`check_interrupted` below), read by the workers the root
+        # rides to
+        self.interrupted = None
 
     # -- the two ledgers -----------------------------------------------------
 
@@ -361,6 +367,19 @@ def suspended():
 
 def current() -> MemTracker | None:
     return getattr(_tl, "root", None)
+
+
+def check_interrupted() -> None:
+    """Raise the statement's interrupt (ExecError, ER_QUERY_INTERRUPTED
+    on the wire) when the statement whose root this thread carries was
+    killed (KILL QUERY / CONNECTION): the coprocessor's pool workers and
+    the device pipeline stop at their next task or batch on it, not
+    only the statement's own thread."""
+    root = getattr(_tl, "root", None)
+    probe = root.interrupted if root is not None else None
+    if probe is not None and probe():
+        from tidb_tpu_torch.executor import ExecError
+        raise ExecError("Query execution was interrupted")
 
 
 def op_node(plan) -> MemTracker | None:

@@ -42,9 +42,14 @@ __all__ = ["MVCCStore", "WriteType", "physical_ms",
 # would otherwise invalidate every columnar chunk-cache and HBM-cache
 # entry, keeping both caches permanently cold exactly when the server
 # is serving. max_commit_ts and the lock set still advance/track for
-# these keys, so the MVCC fill contract is untouched.
+# these keys in the reference; in the port they do not (below). The
+# port adds the statistics blobs (statistics.StatsHandle.save,
+# `m_stats/`): a stats save changes no committed row and no schema, and
+# the server's stats worker saves one per auto-analyzed table — in the
+# reference each save re-colds every cache (a deviation the port makes
+# on purpose).
 EPHEMERAL_PREFIXES = (b"m_owner_", b"m_schema_sync_", b"m_member_",
-                      b"msAutoID:")
+                      b"msAutoID:", b"m_stats/")
 
 
 # key classes for the delta-capture path (store/delta.py): committed
@@ -115,16 +120,21 @@ class MVCCStore:
         # bumped on EVERY state change (locks included): the columnar
         # chunk cache (store/chunk_cache.py) keys its validity on it
         self.data_version = 0
-        # newest commit_ts ever written: a scan snapshot at ts >= this sees
-        # the full current state, so its decoded chunk is safe to cache
-        # (an OLDER snapshot's scan must never populate the cache — newer
-        # readers would inherit its stale view)
+        # newest commit_ts ever written to a non-ephemeral key: a scan
+        # snapshot at ts >= this sees the full current state, so its
+        # decoded chunk is safe to cache (an OLDER snapshot's scan must
+        # never populate the cache — newer readers would inherit its
+        # stale view). Ephemeral keys (EPHEMERAL_PREFIXES) are in no
+        # cached chunk: a live server's schema worker commits its lease
+        # twice a second, and counting those commits (as the reference
+        # does) vetoed every fill of a scan longer than half a second
         self.max_commit_ts = 0
         # keys currently holding a Percolator lock: lock VISIBILITY is
         # per-reader-ts (a lock from a NEWER txn doesn't block an older
         # snapshot's scan), so a fill made while any lock is pending could
         # be served to a reader that must instead see KeyLockedError —
         # the chunk-cache filler refuses to cache while this is nonempty
+        # (ephemeral keys excluded, as for max_commit_ts)
         self._locked_keys: set = set()
         # delta capture (store/delta.py DeltaStore.ingest): installed by
         # the storage facade. While active, committed RECORD mutations
@@ -346,7 +356,8 @@ class MVCCStore:
             for m in mutations:
                 e = self._entry(m.key)
                 e.lock = _Lock(primary, start_ts, ttl_ms, m.op, m.value)
-                self._locked_keys.add(m.key)
+                if not m.key.startswith(EPHEMERAL_PREFIXES):
+                    self._locked_keys.add(m.key)
 
     def commit(self, keys: list[bytes], start_ts: int, commit_ts: int) -> None:
         """Ref: mvcc_leveldb.go Commit — idempotent for already-committed.
@@ -405,7 +416,8 @@ class MVCCStore:
 
     def _commit_locked(self, key: bytes, e: _Entry, start_ts: int,
                        commit_ts: int) -> None:
-        if commit_ts > self.max_commit_ts:
+        if commit_ts > self.max_commit_ts and \
+                not key.startswith(EPHEMERAL_PREFIXES):
             self.max_commit_ts = commit_ts
         lock = e.lock
         if lock.op == MutationOp.PUT:

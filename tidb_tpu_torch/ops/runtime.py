@@ -139,7 +139,7 @@ def pipeline_map(items, dispatch, finalize, depth: int, tracker=None,
     as busy-ns on that profile row."""
     import time as _time
 
-    from tidb_tpu_torch import meter, profiler, sched, trace
+    from tidb_tpu_torch import memtrack, meter, profiler, sched, trace
     from tidb_tpu_torch.util import failpoint
     scheduler = sched.device_scheduler()
     depth = max(int(depth), 1)
@@ -193,6 +193,9 @@ def pipeline_map(items, dispatch, finalize, depth: int, tracker=None,
     try:
         for it in items:
             seq += 1
+            # a killed statement stops before its next dispatch (the
+            # pipeline may run on a coprocessor pool worker)
+            memtrack.check_interrupted()
             while len(pending) >= depth:
                 yield pop_finalize()
             slot = acquire_slot(False)

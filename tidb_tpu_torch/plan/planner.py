@@ -3,8 +3,9 @@
 The port's copy of the JAX package's plan/planner.py, with two cuts: no
 mesh pass (on one device the reference's route_mesh returns the plan
 unchanged; the multi-device plane is not ported), and the memtables
-over unported planes (performance_schema, the server's observability
-tables, the cluster_* fan-out) raise "not ported yet".
+over unported planes (the server's information_schema observability
+tables, the cluster_* fan-out) raise "not ported yet". The
+performance_schema memtables read perfschema.py.
 
 Reference: TiDB's plan/ — logical build (logical_plan_builder.go),
 rule-based optimization {columnPruner, ppdSolver, aggregationOptimizer,
@@ -178,7 +179,7 @@ class Planner:
         if db == "information_schema":
             return self._build_memtable(ts)
         if db == "performance_schema":
-            raise PlanError(not_ported("performance_schema"))
+            return self._build_perfschema(ts)
         _db, info = self._table_info(ts)
         cols = info.public_columns()
         schema_cols = [
@@ -302,6 +303,83 @@ class Planner:
         raise PlanError(
             f"Unknown table 'information_schema.{ts.name}' "
             f"(available: {', '.join(self._MEMTABLES)})")
+
+    # -- PERFORMANCE_SCHEMA virtual tables (ref: perfschema/const.go:120-298
+    # events_statements_current / events_statements_history) -----------------
+
+    _PERF_TABLES = ("events_statements_current",
+                    "events_statements_history",
+                    "events_statements_summary_by_digest")
+
+    def _build_perfschema(self, ts: ast.TableSource) -> ph.PhysValues:
+        from tidb_tpu_torch import perfschema
+        from tidb_tpu_torch.sqltypes import new_int_field, new_string_field
+        name = ts.name.lower()
+        alias = ts.ref_name.lower()
+        if name not in self._PERF_TABLES:
+            raise PlanError(
+                f"Unknown table 'performance_schema.{ts.name}' "
+                f"(available: {', '.join(self._PERF_TABLES)})")
+        if name == "events_statements_summary_by_digest":
+            return self._build_digest_summary(alias)
+        events = perfschema.current_events() \
+            if name == "events_statements_current" \
+            else perfschema.history_events()
+        sf, intf = new_string_field(1024), new_int_field()
+        cols_spec = [("thread_id", intf), ("event_id", intf),
+                     ("sql_text", sf), ("state", sf),
+                     ("timer_start_us", intf), ("timer_wait_ns", intf),
+                     ("parse_ns", intf), ("plan_ns", intf),
+                     ("exec_ns", intf), ("commit_ns", intf),
+                     ("rows_sent", intf), ("error", sf)]
+        schema = PlanSchema([SchemaCol(n, alias, ft)
+                             for n, ft in cols_spec])
+        rows = []
+        for ev in events:
+            rows.append([Constant(v, ft) for v, (_n, ft) in zip(
+                (ev["thread_id"], ev["event_id"], ev["sql_text"],
+                 ev["state"], ev["timer_start_us"], ev["timer_wait_ns"],
+                 ev["parse_ns"], ev["plan_ns"], ev["exec_ns"],
+                 ev["commit_ns"], ev["rows"], ev["error"]), cols_spec)])
+        pv = ph.PhysValues(schema=schema, rows=rows)
+        # events change per statement with no schema-version bump: a
+        # cached plan would serve a frozen snapshot forever
+        pv.cacheable = False
+        return pv
+
+    def _build_digest_summary(self, alias: str) -> ph.PhysValues:
+        """events_statements_summary_by_digest: the per-digest aggregate
+        rows (ref: util/stmtsummary/statement_summary.go surfaced as a
+        performance_schema memtable)."""
+        from tidb_tpu_torch import perfschema
+        from tidb_tpu_torch.sqltypes import new_int_field, new_string_field
+        sf, intf = new_string_field(1024), new_int_field()
+        cols_spec = [("digest", sf), ("digest_text", sf),
+                     ("exec_count", intf), ("sum_latency_ns", intf),
+                     ("max_latency_ns", intf), ("min_latency_ns", intf),
+                     ("avg_latency_ns", intf), ("sum_parse_ns", intf),
+                     ("sum_plan_ns", intf), ("sum_exec_ns", intf),
+                     ("sum_commit_ns", intf), ("sum_rows", intf),
+                     ("sum_errors", intf), ("max_mem_bytes", intf),
+                     ("last_trace_id", intf), ("first_seen", intf),
+                     ("last_seen", intf), ("top_operators", sf)]
+        schema = PlanSchema([SchemaCol(n, alias, ft)
+                             for n, ft in cols_spec])
+        rows = []
+        for r in perfschema.digest_summary():
+            vals = (r["digest"], r["digest_text"], r["exec_count"],
+                    r["sum_latency_ns"], r["max_latency_ns"],
+                    r["min_latency_ns"], r["avg_latency_ns"],
+                    r["sum_parse_ns"], r["sum_plan_ns"],
+                    r["sum_exec_ns"], r["sum_commit_ns"], r["sum_rows"],
+                    r["sum_errors"], r["max_mem_bytes"],
+                    r["last_trace_id"], int(r["first_seen"]),
+                    int(r["last_seen"]), r["top_operators"])
+            rows.append([Constant(v, ft)
+                         for v, (_n, ft) in zip(vals, cols_spec)])
+        pv = ph.PhysValues(schema=schema, rows=rows)
+        pv.cacheable = False     # aggregates move per statement
+        return pv
 
     def build_from(self, node) -> ph.PhysPlan:
         if isinstance(node, ast.TableSource):

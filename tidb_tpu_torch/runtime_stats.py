@@ -34,7 +34,8 @@ import time
 __all__ = ["OpStats", "StatsCollector", "collecting", "current",
            "device_section", "note_superchunk", "note_cop_tasks",
            "note_fallback", "note_encoding", "note_bytes_touched",
-           "note_mode", "note_kernel", "device_watermark"]
+           "note_mode", "note_kernel", "device_watermark", "fmt_ns",
+           "fmt_bytes"]
 
 _tl = threading.local()
 
@@ -346,3 +347,23 @@ def device_section(plan, errors: bool = True, device=None):
             coll.note_device(plan, _device_ns(t0, ev))
         raise
     coll.note_device(plan, _device_ns(t0, ev))
+
+
+def fmt_ns(ns: int) -> str:
+    if ns >= 1_000_000_000:
+        return f"{ns / 1e9:.2f}s"
+    if ns >= 1_000_000:
+        return f"{ns / 1e6:.2f}ms"
+    if ns >= 1_000:
+        return f"{ns / 1e3:.1f}us"
+    return f"{ns}ns"
+
+
+def fmt_bytes(n: int) -> str:
+    if n >= 1 << 30:
+        return f"{n / (1 << 30):.2f}GB"
+    if n >= 1 << 20:
+        return f"{n / (1 << 20):.2f}MB"
+    if n >= 1 << 10:
+        return f"{n / (1 << 10):.1f}KB"
+    return f"{n}B" if n else "0B"

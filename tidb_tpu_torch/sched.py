@@ -30,9 +30,12 @@ one probe dispatch past the quarantine window readmits it.
 section past `tidb_tpu_dispatch_timeout_ms` cancels its statement with
 the retryable DispatchTimeoutError (0 = off, the default).
 
-Left out, with the server that drives them: `AdmissionController`
-(statement admission against `tidb_tpu_server_mem_quota`) and
-`shed_server`.
+**Admission** (`AdmissionController`, `admission`): a statement that
+builds executors projects its footprint (its digest's recorded peak,
+perfschema.digest_max_mem) against `tidb_tpu_server_mem_quota` before it
+runs; past the quota it sheds the server's caches (`shed_server`), then
+queues, then is refused with the retryable AdmissionRejectedError (9008
+on the wire) instead of an OOM cancel in the middle of the statement.
 
 Lock discipline: each class owns ONE Condition/Lock guarding its own
 counters; the scheduler's bytes gate reads the ledger integer lock-free
@@ -48,11 +51,20 @@ import time
 from tidb_tpu_torch import config, devplane, memtrack, meter, metrics, trace
 from tidb_tpu_torch.util import failpoint
 
-__all__ = ["DeviceScheduler", "DispatchWatchdog", "DeviceHealth",
-           "device_scheduler", "dispatch_watchdog",
+__all__ = ["DeviceScheduler", "AdmissionController",
+           "AdmissionRejectedError", "DispatchWatchdog", "DeviceHealth",
+           "device_scheduler", "admission", "dispatch_watchdog",
            "device_health", "device_slot", "finalize_watch",
            "degrade_statement", "statement_degraded",
-           "stats", "reset_for_tests"]
+           "shed_server", "stats", "reset_for_tests"]
+
+
+class AdmissionRejectedError(Exception):
+    """Statement refused at admission: the server is over
+    `tidb_tpu_server_mem_quota`, shedding freed too little, and the
+    bounded queue wait expired. RETRYABLE — surfaced to clients as
+    ER_SERVER_BUSY_ADMISSION (9008) with a retry-later message; the
+    session and its transaction state are untouched."""
 
 # scheduler wait granularity: contended acquires re-check (and
 # pipeline_map gets a chance to drain its own window) on this period
@@ -60,6 +72,10 @@ _SLICE_S = 0.02
 # bypass valve: a dispatch that cannot get a slot for this long stops
 # waiting and proceeds unscheduled (counted, never hung)
 _BYPASS_S = 2.0
+# admission projection floor for digests never seen before: small enough
+# to admit cold workloads, large enough that a flood of unknowns still
+# queues once the ledger fills
+_MIN_PROJECTION = 1 << 20
 
 
 class _Slot:
@@ -605,15 +621,147 @@ def statement_degraded() -> bool:
     return root is not None and root.fault_degraded
 
 
+class AdmissionController:
+    """Statement admission against `tidb_tpu_server_mem_quota`.
+
+    admit() outcomes (the `tidb_tpu_admission_total{outcome}` label):
+      * admitted — fit on the first check;
+      * shed     — fit only after driving the SERVER shed chain;
+      * queued   — fit after waiting for running statements to finish;
+      * rejected — still over quota at `tidb_tpu_admission_timeout_ms`:
+        AdmissionRejectedError (retryable 9008).
+
+    Projections reserve their bytes for the statement's lifetime, so N
+    racing admissions cannot all clear one remaining gap. The reserve
+    double-counts once the statement's REAL consumption lands on the
+    SERVER ledgers — deliberately conservative: admission exists to
+    keep mid-query OOM cancels at zero, and the min-progress rule (an
+    empty controller always admits its head) caps the cost at
+    serialized execution, never a stuck server."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._reserved = 0           # guarded-by: _cv  projected bytes
+        self._admitted = 0           # guarded-by: _cv  running statements
+        self._waiting = 0            # guarded-by: _cv  queue depth
+        self._counts = {"admitted": 0, "queued": 0, "shed": 0,
+                        "rejected": 0}   # guarded-by: _cv
+        self._shed_bytes = 0         # guarded-by: _cv
+
+    @staticmethod
+    def enabled() -> bool:
+        return config.server_mem_quota() > 0
+
+    def _fits_locked(self, projected: int, quota: int) -> bool:
+        if self._admitted == 0:
+            # min-progress: with nothing admitted, the next statement
+            # runs whatever the projection says (checks serialize under
+            # _cv, so exactly one waiter takes this door) — the quota
+            # throttles concurrency, it must not brick the server
+            return True
+        return memtrack.SERVER.total() + self._reserved + projected \
+            <= quota
+
+    def admit(self, projected: int = 0, label: str = "stmt"):
+        """-> ticket (pass to finish()), or None when admission is off.
+        Raises AdmissionRejectedError past the bounded queue wait."""
+        quota = config.server_mem_quota()
+        if quota <= 0:
+            return None
+        projected = max(int(projected), _MIN_PROJECTION)
+        t0 = time.perf_counter_ns()
+        deadline = time.monotonic() + \
+            max(config.admission_timeout_ms(), 1) / 1e3
+        outcome = "admitted"
+        shed_tried = False
+        with self._cv:
+            self._waiting += 1
+            # published under _cv so racing enter/leave cannot publish
+            # counts out of order (metrics._lock is a leaf lock)
+            metrics.gauge(metrics.ADMISSION_QUEUE_DEPTH, self._waiting)
+        try:
+            while True:
+                with self._cv:
+                    if self._fits_locked(projected, quota):
+                        self._reserved += projected
+                        self._admitted += 1
+                        self._counts[outcome] += 1
+                        break
+                if not shed_tried:
+                    shed_tried = True
+                    # drive the registered shed chain (HBM cache blocks,
+                    # hybrid-join cold partitions on running statements)
+                    # down to the headroom this statement needs
+                    target = max(quota - projected - self._reserved, 0)
+                    freed = shed_server(target)
+                    if freed > 0:
+                        outcome = "shed"
+                        with self._cv:
+                            self._shed_bytes += freed
+                        continue      # re-check immediately
+                if time.monotonic() >= deadline:
+                    with self._cv:
+                        self._counts["rejected"] += 1
+                    metrics.counter(metrics.ADMISSIONS,
+                                    {"outcome": "rejected"})
+                    raise AdmissionRejectedError(
+                        f"server is busy: admission of {label} would "
+                        f"exceed tidb_tpu_server_mem_quota ({quota} "
+                        f"bytes); retry later")
+                if outcome == "admitted":
+                    outcome = "queued"
+                with self._cv:
+                    # woken by finish() / shed; slices double as the
+                    # re-check for ledger drains that notify nobody
+                    self._cv.wait(timeout=min(
+                        _SLICE_S, max(deadline - time.monotonic(), 0.001)))
+        finally:
+            with self._cv:
+                self._waiting -= 1
+                metrics.gauge(metrics.ADMISSION_QUEUE_DEPTH,
+                              self._waiting)
+            waited_ns = time.perf_counter_ns() - t0
+            metrics.histogram(metrics.ADMISSION_WAITS, waited_ns / 1e9)
+            # the per-tenant admission-wait ledger (meter.py): the
+            # session thread runs admit() with its statement meter
+            # installed, so the wait attributes to the right tenant
+            meter.note_admission_wait(waited_ns)
+        metrics.counter(metrics.ADMISSIONS, {"outcome": outcome})
+        return projected
+
+    def finish(self, ticket) -> None:
+        """Release an admit() ticket (None-safe)."""
+        if ticket is None:
+            return
+        with self._cv:
+            self._reserved -= ticket
+            self._admitted -= 1
+            self._cv.notify_all()
+
+    def snapshot(self) -> dict:
+        with self._cv:
+            out = dict(self._counts)
+            out["queue_depth"] = self._waiting
+            out["running"] = self._admitted
+            out["reserved_bytes"] = self._reserved
+            out["shed_bytes"] = self._shed_bytes
+            return out
+
+
 # -- process singletons ------------------------------------------------------
 
 _SCHEDULER = DeviceScheduler()
+_ADMISSION = AdmissionController()
 _WATCHDOG = DispatchWatchdog()
 _HEALTH = DeviceHealth()
 
 
 def device_scheduler() -> DeviceScheduler:
     return _SCHEDULER
+
+
+def admission() -> AdmissionController:
+    return _ADMISSION
 
 
 def dispatch_watchdog() -> DispatchWatchdog:
@@ -626,8 +774,9 @@ def device_health() -> DeviceHealth:
 
 def reset_for_tests() -> None:
     """Fresh singletons (test isolation: counters and rotation state)."""
-    global _SCHEDULER, _WATCHDOG, _HEALTH
+    global _SCHEDULER, _ADMISSION, _WATCHDOG, _HEALTH
     _SCHEDULER = DeviceScheduler()
+    _ADMISSION = AdmissionController()
     _WATCHDOG = DispatchWatchdog()
     _HEALTH = DeviceHealth()
 
@@ -723,8 +872,23 @@ class device_slot:
         return False
 
 
+def shed_server(target: int = 0) -> int:
+    """Drive the SERVER root's registered shed chain (recursing into
+    session/statement subtrees, so running statements' spill actions —
+    hybrid-join cold partitions, sort spills — fire too) until the
+    SERVER total is at/below `target` bytes. -> bytes freed. The admin
+    hook behind the status port's /shed endpoint and the admission
+    controller's overflow path. Registered server-scope actions: the HBM
+    region-block cache (store/device_cache.py), the MVCC delta stores
+    (store/delta.py), the kernel-profile registry and the
+    metrics-history ring."""
+    failpoint.eval("admission/shed")
+    return memtrack.SERVER.run_spill_actions(target, recurse=True)
+
+
 def stats() -> dict:
-    """Scheduler, watchdog and device-health snapshot."""
+    """Scheduler, admission, watchdog and device-health snapshot."""
     return {"scheduler": _SCHEDULER.snapshot(),
+            "admission": _ADMISSION.snapshot(),
             "watchdog": _WATCHDOG.snapshot(),
             "device_health": _HEALTH.snapshot()}

@@ -911,6 +911,9 @@ class CopClient(kv.Client):
     def _run_task(self, req: CopRequest, rng: KVRange):
         """One region task with retry (handleTask, coprocessor.go:507):
         region errors re-split the range; locks resolve."""
+        # a killed statement stops here, on the pool worker, at its
+        # next task (the worker carries the statement's memtrack root)
+        memtrack.check_interrupted()
         bo = Backoffer(COP_MAX_BACKOFF)
         while True:
             loc = self.cache.locate(rng.start)
@@ -1124,6 +1127,8 @@ class CopClient(kv.Client):
                     loc.ctx, sub, credit=config.copr_stream_credit(),
                     frame_bytes=config.copr_stream_frame_bytes())
                 for frame in it:
+                    # a killed statement stops at the next frame
+                    memtrack.check_interrupted()
                     counter["frames"] += 1
                     # chunk is a Chunk (scan/filter), a GroupResult
                     # (device partial agg — no num_rows), or None
