@@ -12,8 +12,9 @@ Phases, one JSON line each:
           on the card), each held exactly against a numpy truth; the
           kernels' launch counts are read around each run
   q3, q5  TPC-H Q3 and Q5 (run_q3, run_q5) at the same scale factor over
-          the same generated tables, twice each, held exactly against
-          numpy truths (Q3 in every group before its TopN too); the phase
+          the same generated tables, once each (a second run, which held
+          the same, was cut for time), held exactly against numpy truths
+          (Q3 in every group before its TopN too); the phase
           asserts the segment-sum kernel launched, the lineitem join took
           the hybrid path, Q5's fused fragment dispatched, no fallback, no
           host sync inside the first JoinKernel / ProbeAggKernel /
@@ -37,49 +38,36 @@ Phases, one JSON line each:
           (np.bincount); the segment-sum kernel launched, the sorter
           spilled runs to disk, no fallback, no host sync in the first
           SegmentAggKernel dispatch, and the ledger reads 0 afterwards
-  store   TPC-H Q1 served from the mock TiKV store at SF 1 (STORE_SF, or
-          --sf where smaller): ScaledTpch bulk-loaded (tpch.load_store,
-          lineitem and orders in 4 regions), then run_q1_store five times
-          at the default sysvars (streaming cop, chunk cache, 2 GiB HBM
-          block cache, fused scan, delta store): cold (framed scan and
-          decode, a dispatch per frame, chunk-cache fill at the stream's
-          end); first warm (one HBM block filled per region, one fused
-          dispatch each); second warm (every region a hit, no host->device
-          byte); after an OLTP batch of 4,000 updates, 1,000 inserts (one
-          with an l_returnflag the block's dictionary lacks) and 1,000
-          deletes in one region (that block patched on the card, the rest
-          hits); after 4,000 more updates (past tidb_tpu_delta_merge_rows:
-          the delta store merges; the written region re-fills, the three
-          untouched ones stay hot in both caches). Every run equals
-          an exact numpy truth over the mutated arrays and leaves the
-          statement's ledger at 0. Between the hot run and the first
-          batch, TPC-H Q3 and Q5 from the same store (run_q3_store,
-          run_q5_store: TableReader leaves through the coprocessor,
-          materialized), cold then warm from the chunk cache, each equal
-          to its numpy truth (Q3 in every group before its TopN), with
-          their join paths, chunk-cache hits and misses, host->device
-          bytes, kernel launches and ledger peak; then the kernel-profile
-          registry (profiler.snapshot: dispatches, busy ms, bytes and
-          roofline fraction per kernel family against the card's
-          datasheet peak). Before them, on a store of its own at
-          SF 0.1 (CHECK_SF) fanned out on one thread, the process's first
-          fused dispatch and first patch (of a 64-row batch) run under
-          sync-debug "error"; the patch's device program (B11) is timed
-          by CUDA events, the whole patch by the host clock; the
-          hbm-cache ledger node returns to 0 at shed()
   sql     TPC-H Q1, Q3 and Q5 as SQL text through the port's Session
           (tidb_tpu_torch.session) at SF 1 (STORE_SF, or --sf where
           smaller): CREATE DATABASE tpch, USE tpch, tpch.load (the DDL
           through the DDL and meta layers, lineitem and orders in 4
           regions); Q1 cold, warm (HBM fill) and hot, then Q3 and Q5
-          cold and warm with the materialized coprocessor; each equal to
+          cold with the materialized coprocessor (their warm runs cut for
+          time); each equal to
           its numpy truth as the session formats it, with the seconds of
           each run, its parse/plan/execute/format split and the load's
           seconds; the phase asserts the segment-sum kernel launched in
           every run, the hot Q1 read 4 HBM hits and no host->device
           byte, Q3's lineitem join took the hybrid path, Q5's fragment
           dispatched fused, no fallback, and every statement's ledger at
-          0 after it; its session and store carry on into htap
+          0 after it; its session and store carry on into store and
+          htap
+  store   the hand-built store plans on the sql phase's store (no load
+          of their own; tpch.table_infos() where they equal the
+          TableInfos CREATE TABLE made, else the store's): run_q1_store
+          warm (its HBM blocks shed first: one fill per region) and hot
+          (every region a hit, no host->device byte, the hbm-cache node
+          equal to the cache's resident bytes), run_q3_store and
+          run_q5_store warm and hot from the chunk cache (the hot run
+          misses nowhere), each equal to its numpy truth (Q3 in every
+          group before its TopN), with the kernel launched, no fallback
+          and the ledger at 0; then the kernel-profile registry
+          (profiler.snapshot). Before them, on a store of its own at
+          SF 0.1 (CHECK_SF) fanned out on one thread, the process's first
+          fused dispatch and first patch (of a 64-row batch) run under
+          sync-debug "error". The write batches with Q1 patched and
+          merged are the htap phase's
   htap    writes and transactions through SQL on the sql phase's store
           (htap_phase): TPC-H lineitem batches as SQL (tpch.sql_batch;
           4,000 updates, 1,000 inserts, 1,000 deletes): 500 statements
@@ -99,7 +87,19 @@ Phases, one JSON line each:
           IndexLookUp, a join on c_custkey that the planner turns into
           IndexJoin or MergeJoin (named), each equal to a numpy truth;
           DROP INDEX, TRUNCATE TABLE stock and one GC tick, which drains
-          the delete ranges
+          the delete ranges. The patched Q1 reads 4 HBM hits and delta
+          serves (its patch's device program timed against its bytes
+          bound), the merged Q1 4 hits and no miss
+  sqlrest the rest of the SQL stack on the htap phase's store
+          (sqlrest_phase): TPC-H Q18 (an uncorrelated Apply), NOT IN, a
+          correlated scalar subquery, UNION ALL and UNION, the cross
+          join, Q3 and Q5 with per-chunk device aggregation, LOAD DATA
+          through the native scanner (ScaledTpch lineitem at LOAD_SF),
+          SPLIT TABLE and Q1 over the loaded table, ADMIN, EXPLAIN
+          ANALYZE with the runtime-stats overhead on hot Q1, TRACE with
+          the trace ring, /trace/<id>/chrome and the memtables, and the
+          binlog of a 1,000-UPDATE transaction; each held against a
+          numpy truth or the host path, with its ledger at 0
   server  the MySQL server on the htap phase's store (server_phase): the
           port's Server and StatusServer in-process, driven over TCP by a
           minimal client of its own (WireClient, over server/packet.py):
@@ -132,14 +132,15 @@ Phases, one JSON line each:
           delay (the retryable DispatchTimeoutError, then a clean replay)
   kernel  each kernel against its plain torch version on the card, over
           dtypes, masks and shapes (checked before q1); then, at every
-          shape the cold Q1 run, the first Q3 and Q5 runs, the Q18 run,
-          the store's cold, first warm and patched runs and its cold Q3
-          and Q5 runs, and the sql phase's cold and warm Q1 and cold Q3
-          and Q5, the htap phase's patched and merged Q1, analytic,
-          union-scan, index-reader, index-lookup and index-join
-          statements, and the server phase's cold, warm and prepared Q1
-          and cold Q3 and Q5 over the wire gave it (their calls recorded
-          by segsum_bench.record_calls),
+          shape the cold Q1 run, the Q3 and Q5 runs, the Q18 run, the
+          sql phase's cold and warm Q1 and cold Q3 and Q5, the store's
+          warm Q1, Q3 and Q5 runs, the htap phase's patched and merged
+          Q1, analytic, union-scan, index-reader, index-lookup and
+          index-join statements, the sqlrest phase's Q18, UNION ALL,
+          cross join, per-chunk Q3 and Q5 and the loaded table's Q1, and
+          the server phase's cold, warm and prepared Q1 and cold Q3 and
+          Q5 over the wire gave it (their calls recorded by
+          segsum_bench.record_calls),
           held again on those
           very inputs and timed: device time beside its host time per
           call, the plain version, one PyTorch library call and the bound
@@ -150,7 +151,7 @@ Phases, one JSON line each:
           launches there on its path, its parity and its times
 With --profile, each of q1, q3 and q5 adds torch.profiler tables of one
 more run: device time by kernel, host time by op, device idle share; the
-store phase adds one more warm run of its Q3 and Q5 and a hot and a
+store phase adds one more hot run of its Q3 and Q5 and a hot and a
 cold Q1 run so profiled (Q1 fanned out on one thread).
 The card's name and power limit (as nvidia-smi gives them) stand on a
 line of their own, and the last line is
@@ -483,10 +484,11 @@ def recorded_path(path, rec, launches):
 
 
 def run_query_phase(name, args, dev, d, tables, recorded) -> dict:
-    """`name` (q3 or q5) twice over the shared tables, each run held
-    exactly against the numpy truth (Q3 also in every group before its
-    TopN), with the phase's assertions; the first run's segment_sum
-    calls go to recorded[name]."""
+    """`name` (q3 or q5) once over the shared tables (its second run was
+    cut for the time budget: it held what the first holds), held exactly
+    against the numpy truth (Q3 also in every group before its TopN),
+    with the phase's assertions; the run's segment_sum calls go to
+    recorded[name] and its torch programs to the programs capture."""
     from tidb_tpu_torch.benchmarks import programs_bench, segsum_bench, tpch
     from tidb_tpu_torch.executor import agg
     from tidb_tpu_torch.ops import fragment, hashagg, join, segsum
@@ -501,56 +503,54 @@ def run_query_phase(name, args, dev, d, tables, recorded) -> dict:
     out = {"phase": name, "sf": args.sf, "seed": args.seed,
            "input_rows": nrows, "superchunk_rows": 1 << 18,
            "truth_s": truth_s, "runs": []}
-    for i in range(2):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        with SyncFreeFirstDispatch(join.JoinKernel, fragment.ProbeAggKernel,
-                                   hashagg.HashAggKernel) as sync_check, \
-                (programs if i == 1 else segsum_bench.record_calls()) as rec:
-            segsum.launches = 0
-            res = run(device=dev, tables=qtables)
-            launches = segsum.launches
-        if i == 0:
-            recorded[name] = recorded_path(name, rec, launches)
-        st = res.stats
-        if res.rows != truth:
-            raise AssertionError(f"{name} run {i}: rows differ from the "
-                                 f"numpy truth:\n{res.rows}\n{truth}")
-        if groups is not None and sorted(res.groups) != groups:
-            raise AssertionError(
-                f"{name} run {i}: the HashAgg's {len(res.groups)} groups "
-                f"differ from the numpy truth's {len(groups)}")
-        if launches <= 0:
-            raise AssertionError(f"{name}: segment-sum kernel never "
-                                 "launched")
-        if st.join_paths.get("lineitem") != "hybrid":
-            raise AssertionError(f"{name}: the lineitem join took "
-                                 f"{st.join_paths}, not the hybrid path")
-        if name == "q5" and not st.fused_dispatches:
-            raise AssertionError("q5: the fused fragment never dispatched")
-        if st.fallbacks:
-            raise AssertionError(f"{name}: fallbacks {st.fallback_reasons}")
-        if st.mem_left:
-            raise AssertionError(f"{name} run {i}: the statement's ledger "
-                                 f"still holds {st.mem_left} bytes")
-        need = {"JoinKernel"} | ({"ProbeAggKernel"} if name == "q5"
-                                 else {"HashAggKernel"})
-        if not need <= set(sync_check.checked):
-            raise AssertionError(f"{name}: sync-free dispatch checked only "
-                                 f"{sync_check.checked}")
-        out["runs"].append({
-            "seconds": res.seconds, "rows_per_s": nrows / res.seconds,
-            "segsum_launches": launches, "groups": len(res.groups),
-            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-            "host_max_rss_kb": resource.getrusage(
-                resource.RUSAGE_SELF).ru_maxrss,
-            "sync_free_dispatch": sync_check.checked,
-            "stats": {k: v for k, v in vars(st).items()}})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with SyncFreeFirstDispatch(join.JoinKernel, fragment.ProbeAggKernel,
+                               hashagg.HashAggKernel) as sync_check, \
+            programs, segsum_bench.record_calls() as rec:
+        segsum.launches = 0
+        res = run(device=dev, tables=qtables)
+        launches = segsum.launches
+    recorded[name] = recorded_path(name, rec, launches)
+    st = res.stats
+    if res.rows != truth:
+        raise AssertionError(f"{name}: rows differ from the "
+                             f"numpy truth:\n{res.rows}\n{truth}")
+    if groups is not None and sorted(res.groups) != groups:
+        raise AssertionError(
+            f"{name}: the HashAgg's {len(res.groups)} groups "
+            f"differ from the numpy truth's {len(groups)}")
+    if launches <= 0:
+        raise AssertionError(f"{name}: segment-sum kernel never "
+                             "launched")
+    if st.join_paths.get("lineitem") != "hybrid":
+        raise AssertionError(f"{name}: the lineitem join took "
+                             f"{st.join_paths}, not the hybrid path")
+    if name == "q5" and not st.fused_dispatches:
+        raise AssertionError("q5: the fused fragment never dispatched")
+    if st.fallbacks:
+        raise AssertionError(f"{name}: fallbacks {st.fallback_reasons}")
+    if st.mem_left:
+        raise AssertionError(f"{name}: the statement's ledger "
+                             f"still holds {st.mem_left} bytes")
+    need = {"JoinKernel"} | ({"ProbeAggKernel"} if name == "q5"
+                             else {"HashAggKernel"})
+    if not need <= set(sync_check.checked):
+        raise AssertionError(f"{name}: sync-free dispatch checked only "
+                             f"{sync_check.checked}")
+    out["runs"].append({
+        "seconds": res.seconds, "rows_per_s": nrows / res.seconds,
+        "segsum_launches": launches, "groups": len(res.groups),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "host_max_rss_kb": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss,
+        "sync_free_dispatch": sync_check.checked,
+        "stats": {k: v for k, v in vars(st).items()}})
     out["rows"] = [[str(x) for x in r] for r in truth]
     if name == "q3":
         out["quota_run"] = run_quota(run, dev, qtables, truth,
                                      out["runs"][0]["stats"])
-    # the torch programs of the second run, replayed at its shapes
+    # the torch programs of the run, replayed at its shapes
     out["programs"] = [
         {"program": prog, "shape": list(shape), "calls_per_run": calls,
          "calls_per_run_all_shapes": sum(
@@ -853,64 +853,62 @@ def store_sync_checks(args, dev) -> dict:
     return out
 
 
-def store_phase(args, dev, recorded) -> dict:
-    """TPC-H Q1 served from the mock TiKV store at min(--sf, STORE_SF):
-    load, five run_q1_store runs at the default sysvars around two OLTP
-    write batches, each held exactly against the numpy truth of the
-    mutated arrays; the cold, first warm and patched runs' segment_sum
-    calls go to recorded["store-*"]. The host-sync checks run first, on
-    a store of their own (store_sync_checks)."""
+def store_infos(sess) -> tuple[dict, bool]:
+    """The TableInfos the hand-built store plans read on the sql phase's
+    store: tpch.table_infos() (ids 3-13, the JAX DDL's) where they equal
+    the ones CREATE TABLE made there, else the store's InfoSchema's.
+    -> ({table: TableInfo}, whether the hand-built ones were equal)."""
+    from tidb_tpu_torch.benchmarks import tpch
+    ischema = sess.domain.info_schema()
+    hand = tpch.table_infos()
+    ddl = {name: ischema.table("tpch", name) for name in hand}
+    same = all(hand[name] == ddl[name] for name in hand)
+    return (hand if same else ddl), same
+
+
+def store_phase(args, dev, recorded, sess, storage, d, counter) -> dict:
+    """The hand-built store plans on the sql phase's store (no load of
+    their own): run_q1_store warm (its HBM blocks shed first, so each
+    region fills one) and hot (every region a hit, no host->device
+    byte, the hbm-cache node equal to the cache's resident bytes), then
+    run_q3_store and run_q5_store warm and hot from the chunk cache with
+    the materialized coprocessor (store_query_runs). Every run equals the
+    numpy truth, launched the segment-sum kernel, fell back nowhere and
+    leaves its ledger at 0; the warm runs' segment_sum calls go to
+    recorded["store-*"]. The host-sync checks run first, on a store of
+    their own (store_sync_checks). The write batches with Q1 patched and
+    merged are the htap phase's, which holds them."""
     from tidb_tpu_torch import config, metrics
     from tidb_tpu_torch.benchmarks import segsum_bench, tpch
     from tidb_tpu_torch.executor.agg import run_q1_store
     from tidb_tpu_torch.ops import runtime, segsum
-    from tidb_tpu_torch.store import delta, device_cache
-    from tidb_tpu_torch.store.storage import new_mock_storage
-    sf = min(args.sf, STORE_SF)
-    t0 = time.perf_counter()
-    d = tpch.ScaledTpch(sf, args.seed)
-    gen_s = time.perf_counter() - t0
-    storage = new_mock_storage(device=dev)
-    # a batch's secondaries commit before commit() returns: the next run
-    # reads the whole batch through the delta journal (under the default
-    # asynchronous secondaries, a read straight after a commit meets
-    # their locks and scans that region instead)
-    storage.async_commit_secondaries = False
-    t0 = time.perf_counter()
-    loaded = tpch.load_store(storage, d)
-    load_s = time.perf_counter() - t0
-    mirror = tpch.Q1Mirror(d)
+    from tidb_tpu_torch.store import device_cache
+    infos, same = store_infos(sess)
+    truth = tpch.Q1Mirror(d).truth()
     cache = storage.device_cache
     node = device_cache.tracker()
     n = d.counts["lineitem"]
     regions = 4
-    out = {"phase": "store", "sf": sf, "seed": args.seed,
-           "lineitem_rows": n, "rows_loaded": loaded, "generate_s": gen_s,
-           "load_s": load_s, "regions": regions,
+    out = {"phase": "store", "sf": min(args.sf, STORE_SF),
+           "seed": args.seed, "lineitem_rows": n, "regions": regions,
+           "hand_built_infos_equal_ddl": same,
            "sync_checks": store_sync_checks(args, dev), "runs": {}}
 
-    def counter(name):
-        """A counter's value summed over its label sets."""
-        return sum(v for k, v in metrics.snapshot().items()
-                   if k == name or k.startswith(name + "{"))
-
-    def run(name, record=False, patch_timer=None):
+    def run(name, record=False):
         before = {k: counter(k) for k in (metrics.HBM_CACHE_HITS,
-                                          metrics.HBM_CACHE_MISSES,
-                                          metrics.CACHE_DELTA_SERVES)}
-        put0, patches0 = runtime.put_bytes(), cache.patches
+                                          metrics.HBM_CACHE_MISSES)}
+        put0 = runtime.put_bytes()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        with (patch_timer or contextlib.nullcontext()), \
-                (segsum_bench.record_calls() if record
-                 else contextlib.nullcontext()) as rec:
+        with (segsum_bench.record_calls() if record
+              else contextlib.nullcontext()) as rec:
             segsum.launches = 0
-            res = run_q1_store(device=dev, storage=storage)
+            res = run_q1_store(device=dev, storage=storage,
+                               lineitem=infos["lineitem"])
             launches = segsum.launches
         if rec is not None:
             recorded[f"store-{name}"] = recorded_path(f"store {name}", rec,
                                                       launches)
-        truth = mirror.truth()
         st = res.stats
         if res.rows != truth:
             raise AssertionError(f"store {name}: rows differ from the numpy "
@@ -929,9 +927,6 @@ def store_phase(args, dev, recorded) -> dict:
                before[metrics.HBM_CACHE_HITS],
                "hbm_misses": counter(metrics.HBM_CACHE_MISSES) -
                before[metrics.HBM_CACHE_MISSES],
-               "hbm_patches": cache.patches - patches0,
-               "delta_serves": counter(metrics.CACHE_DELTA_SERVES) -
-               before[metrics.CACHE_DELTA_SERVES],
                "h2d_bytes": runtime.put_bytes() - put0,
                "segsum_launches": launches, "ledger_peak": st.mem_peak,
                "ledger_left": st.mem_left,
@@ -942,9 +937,7 @@ def store_phase(args, dev, recorded) -> dict:
         out["runs"][name] = got
         return got
 
-    cold = run("cold", record=True)
-    if cold["hbm_hits"] or len(cache):
-        raise AssertionError(f"store cold: HBM blocks at a cold run {cold}")
+    cache.shed()
     warm = run("warm", record=True)
     if warm["hbm_misses"] != regions or len(cache) != regions or \
             warm["hbm_hits"]:
@@ -957,90 +950,37 @@ def store_phase(args, dev, recorded) -> dict:
     if node.device != cache.resident_bytes() or not node.device:
         raise AssertionError(f"store: hbm-cache node {node.device} B, "
                              f"cache {cache.resident_bytes()} B")
-    # Q3 and Q5 on the loaded data, before the first batch changes it
-    out["queries"] = store_query_runs(args, dev, storage, d, recorded)
+    out["queries"] = store_query_runs(args, dev, storage, d, infos,
+                                      recorded)
     out["kernel_profile"] = kernel_profile()
-    # the first batch: all in the last region (its handles run past n)
-    lo = (regions - 1) * (n // regions)
-    b1 = tpch.write_batch(d, np.arange(lo, n), args.seed + 1, 4000, 1000,
-                          1000, next_handle=n, new_flag="X")
-    t0 = time.perf_counter()
-    tpch.commit_batch(storage, b1)
-    out["batch1_s"] = time.perf_counter() - t0
-    mirror.apply(b1)
-    if storage.delta_store.rows_current() != 6000:
-        raise AssertionError(f"store: {storage.delta_store.rows_current()} "
-                             "journaled rows after the first batch")
-    timer = TimedPatches()
-    patched = run("patched", record=True, patch_timer=timer)
-    out["patch"] = timer.finish()
-    if patched["hbm_patches"] != 1 or patched["hbm_hits"] != regions or \
-            patched["hbm_misses"] or not patched["delta_serves"]:
-        raise AssertionError(f"store patched: expected one device patch "
-                             f"and {regions} hits, {patched}")
-    if len(timer.calls) != 1 or timer.calls[0]["scatter_device_ms"] is None:
-        raise AssertionError(f"store patched: patch calls {timer.calls}")
-    # the patch's device program clones every lane of the block and
-    # writes the delta rows: bytes bound = each resident lane byte read
-    # once and written once
-    out["patch_bound_ms"] = 2 * timer.calls[0]["lane_bytes"] / \
-        segsum_bench.H100_BYTES_PER_S * 1e3
-    live = np.setdiff1d(np.arange(lo, n), b1.deletes)
-    merged0 = counter(metrics.DELTA_MERGES)
-    b2 = tpch.write_batch(d, live, args.seed + 2, 4000)
-    t0 = time.perf_counter()
-    tpch.commit_batch(storage, b2)
-    storage.delta_store.join()
-    out["batch2_s"] = time.perf_counter() - t0
-    mirror.apply(b2)
-    out["merges"] = counter(metrics.DELTA_MERGES) - merged0
-    if out["merges"] != 1:
-        raise AssertionError(f"store: {out['merges']} delta merges after "
-                             "the second batch")
-    out["journal_rows_after_merge"] = storage.delta_store.rows_current()
-    merged = run("merged")
-    # the merge re-stamped the three regions no write touched: every
-    # region still hits the HBM cache (the written one through a patch)
-    if merged["hbm_hits"] != regions or merged["hbm_misses"]:
-        raise AssertionError(f"store merged: untouched regions went cold "
-                             f"{merged}")
-    out["rows"] = [[str(x) for x in r] for r in mirror.truth()]
+    out["rows"] = [[str(x) for x in r] for r in truth]
     if args.profile:
-        # one thread, so cProfile sees the regions' work; the regions the
-        # merge re-colded fill their blocks first, so the profiled hot
-        # run hits in every region; then a cold run from empty caches
+        # one thread, so cProfile sees the regions' work: a hot run, then
+        # a cold one from empty caches, then a warm one that refills the
+        # blocks, so the htap phase starts hot as without --profile
         with config.session_overlay({"tidb_tpu_cop_concurrency": 1}):
-            run_q1_store(device=dev, storage=storage)
             out["profile_hot"] = profile_run(
-                lambda: run_q1_store(device=dev, storage=storage))
+                lambda: run_q1_store(device=dev, storage=storage,
+                                     lineitem=infos["lineitem"]))
             storage.chunk_cache.clear()
             cache.shed()
             out["profile_cold"] = profile_run(
-                lambda: run_q1_store(device=dev, storage=storage))
-    out["hbm_resident_before_shed"] = node.device
-    storage.close()
-    out["hbm_resident_after_shed"] = node.device
-    out["delta_staged_after_close"] = delta.tracker().host
-    if node.device or delta.tracker().host:
-        raise AssertionError(f"store: ledger nodes hold {node.device} B "
-                             f"(hbm-cache), {delta.tracker().host} B "
-                             "(delta-store) after shed")
+                lambda: run_q1_store(device=dev, storage=storage,
+                                     lineitem=infos["lineitem"]))
+            run_q1_store(device=dev, storage=storage,
+                         lineitem=infos["lineitem"])
     return out
 
 
-def store_query_runs(args, dev, storage, d, recorded) -> dict:
-    """run_q3_store and run_q5_store over the store phase's storage, each
-    twice with the materialized coprocessor (tidb_tpu_copr_stream = 0):
-    cold (every region scanned, decoded and put in the chunk cache;
-    lineitem's regions may already be there from Q1, the same columns),
-    then warm from the chunk cache. Streamed, a selection plan's region
-    bigger than one frame (4 MiB) is re-scanned from the store on every
-    run, as in the JAX package, so only the materialized path reads the
-    chunk cache at SF 1. Each run equals the numpy truth (Q3 in every
-    group before its TopN too), launched the segment-sum kernel and
-    leaves the ledger at 0; the warm run misses the chunk cache nowhere.
-    The cold runs' segment_sum calls go to recorded["store-q3" /
-    "store-q5"]."""
+def store_query_runs(args, dev, storage, d, infos, recorded) -> dict:
+    """run_q3_store and run_q5_store over the sql phase's storage, each
+    twice with the materialized coprocessor (tidb_tpu_copr_stream = 0,
+    as the sql phase ran its Q3 and Q5): warm (whatever of the regions
+    the chunk cache lacks is scanned, decoded and put there) and hot
+    (from the chunk cache: no miss). Each run equals the numpy truth (Q3
+    in every group before its TopN too), launched the segment-sum kernel
+    and leaves the ledger at 0. The warm runs' segment_sum calls go to
+    recorded["store-q3" / "store-q5"]."""
     from tidb_tpu_torch import config
     from tidb_tpu_torch.benchmarks import segsum_bench, tpch
     from tidb_tpu_torch.executor.agg import run_q3_store, run_q5_store
@@ -1051,15 +991,15 @@ def store_query_runs(args, dev, storage, d, recorded) -> dict:
         truth = {"q3": tpch.q3_truth, "q5": tpch.q5_truth}[name](d)
         groups = tpch.q3_groups_truth(d) if name == "q3" else None
         runs = {}
-        for label in ("cold", "warm"):
+        for label in ("warm", "hot"):
             hits0, misses0, put0 = cc.hits, cc.misses, runtime.put_bytes()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            with (segsum_bench.record_calls() if label == "cold"
+            with (segsum_bench.record_calls() if label == "warm"
                   else contextlib.nullcontext()) as rec, \
                     config.session_overlay({"tidb_tpu_copr_stream": 0}):
                 segsum.launches = 0
-                res = run(device=dev, storage=storage)
+                res = run(device=dev, storage=storage, infos=infos)
                 launches = segsum.launches
             if rec is not None:
                 recorded[f"store-{name}"] = recorded_path(
@@ -1080,10 +1020,10 @@ def store_query_runs(args, dev, storage, d, recorded) -> dict:
                 raise AssertionError(f"{where}: fallbacks "
                                      f"{st.fallback_reasons}, ledger left "
                                      f"{st.mem_left} B")
-            if label == "warm" and (cc.misses != misses0 or
-                                    cc.hits == hits0):
+            if label == "hot" and (cc.misses != misses0 or
+                                   cc.hits == hits0):
                 raise AssertionError(f"{where}: {cc.misses - misses0} "
-                                     "chunk-cache misses in the warm run")
+                                     "chunk-cache misses in the hot run")
             runs[label] = {
                 "seconds": res.seconds, "join_paths": st.join_paths,
                 "chunk_cache_hits": cc.hits - hits0,
@@ -1099,7 +1039,7 @@ def store_query_runs(args, dev, storage, d, recorded) -> dict:
         if args.profile:
             with config.session_overlay({"tidb_tpu_copr_stream": 0}):
                 out[name]["profile"] = profile_run(
-                    lambda: run(device=dev, storage=storage))
+                    lambda: run(device=dev, storage=storage, infos=infos))
     return out
 
 
@@ -1107,9 +1047,9 @@ def sql_phase(args, dev, recorded) -> tuple[dict, dict]:
     """TPC-H Q1, Q3 and Q5 as SQL text through the port's Session at
     min(--sf, STORE_SF): CREATE DATABASE, USE and tpch.load (the DDL
     through the DDL and meta layers, lineitem and orders in 4 regions),
-    then Q1 cold, warm (HBM fill) and hot, and Q3 and Q5 cold and warm
-    with the materialized coprocessor (SET @@tidb_tpu_copr_stream = 0,
-    as store_query_runs). Every result equals the numpy truth formatted
+    then Q1 cold, warm (HBM fill) and hot, and Q3 and Q5 cold with the
+    materialized coprocessor (SET @@tidb_tpu_copr_stream = 0, as
+    store_query_runs). Every result equals the numpy truth formatted
     as the session formats it; every run launched the segment-sum kernel
     (the count set to 0 just before the statement and read just after),
     fell back nowhere (operators and coprocessor) and left its
@@ -1218,8 +1158,9 @@ def sql_phase(args, dev, recorded) -> tuple[dict, dict]:
         sess, storage, d, regions, counter)
     statement("SET @@tidb_tpu_copr_stream = 0")
     for name in ("q3", "q5"):
+        # one run each (a warm one, which held the same, was cut for
+        # time: the store phase runs Q3 and Q5 warm and hot)
         cold = run(name, "cold", record=True)
-        run(name, "warm")
         if name == "q3" and cold["join_paths"].get("lineitem") != "hybrid":
             raise AssertionError(f"sql q3: the lineitem join took "
                                  f"{cold['join_paths']}, not the hybrid "
@@ -1375,6 +1316,7 @@ def htap_phase(args, dev, recorded, sess, storage, d,
         py = cProfile.Profile() if profile else None
         hits0 = counter(metrics.HBM_CACHE_HITS)
         misses0 = counter(metrics.HBM_CACHE_MISSES)
+        serves0 = counter(metrics.CACHE_DELTA_SERVES)
         put0, patches0 = runtime.put_bytes(), cache.patches
         chunk0 = (storage.chunk_cache.hits, storage.chunk_cache.misses)
         torch.cuda.synchronize()
@@ -1407,6 +1349,8 @@ def htap_phase(args, dev, recorded, sess, storage, d,
                "hbm_hits": counter(metrics.HBM_CACHE_HITS) - hits0,
                "hbm_misses": counter(metrics.HBM_CACHE_MISSES) - misses0,
                "hbm_patches": cache.patches - patches0,
+               "delta_serves": counter(metrics.CACHE_DELTA_SERVES) -
+               serves0,
                "chunk_cache_hits": storage.chunk_cache.hits - chunk0[0],
                "chunk_cache_misses": storage.chunk_cache.misses - chunk0[1],
                "h2d_bytes": runtime.put_bytes() - put0,
@@ -1481,9 +1425,17 @@ def htap_phase(args, dev, recorded, sess, storage, d,
         patched = q1("q1_patched", record="htap-q1-patched")
     out["patch"] = timer.finish()
     if patched["hbm_patches"] < 1 or patched["hbm_misses"] or \
-            patched["segsum_launches"] <= 0:
+            patched["segsum_launches"] <= 0 or \
+            patched["hbm_hits"] != regions or not patched["delta_serves"]:
         raise AssertionError(f"htap: the committed batch was not patched "
-                             f"on the card {patched}")
+                             f"on the card in {regions} hits {patched}")
+    if not timer.calls or timer.calls[0]["scatter_device_ms"] is None:
+        raise AssertionError(f"htap patched: patch calls {timer.calls}")
+    # the patch's device program clones every lane of the block and
+    # writes the delta rows: bytes bound = each resident lane byte read
+    # once and written once
+    out["patch_bound_ms"] = 2 * timer.calls[0]["lane_bytes"] / \
+        segsum_bench.H100_BYTES_PER_S * 1e3
     live = np.setdiff1d(np.arange(lo, n), b1.deletes)
     b2 = tpch.write_batch(d, live, args.seed + 2, 4000)
     merges0 = counter(metrics.DELTA_MERGES)
@@ -1499,7 +1451,12 @@ def htap_phase(args, dev, recorded, sess, storage, d,
     if not out["autocommit"]["merges"]:
         raise AssertionError(f"htap: no delta merge after 4,000 UPDATEs "
                              f"{out['autocommit']}")
-    q1("q1_merged", record="htap-q1-merged")
+    merged = q1("q1_merged", record="htap-q1-merged")
+    # the merge re-stamped the regions no write touched: every region
+    # still hits the HBM cache (the written one through a patch)
+    if merged["hbm_hits"] != regions or merged["hbm_misses"]:
+        raise AssertionError(f"htap merged: untouched regions went cold "
+                             f"{merged}")
     h = int(live[0])
     execute(sess, "BEGIN")
     sess.query(f"SELECT l_quantity FROM lineitem WHERE l_id = {h} "
@@ -1642,8 +1599,456 @@ def htap_phase(args, dev, recorded, sess, storage, d,
     query("stock_after_gc", "SELECT COUNT(*) FROM htap.stock", [(0,)])
     query("customer_after_gc", scan, scan_truth)
     sess.close()
-    # the storage carries on into the server phase, which closes it and
-    # holds the hbm-cache node at 0 after that close
+    # the storage carries on into the sqlrest and server phases (the
+    # server closes it and holds the hbm-cache node at 0 after that
+    # close), with lineitem's written state: the Q1 mirror and the
+    # l_orderkey of the rows the first batch inserted
+    return out, {"storage": storage, "d": d, "counter": counter,
+                 "mirror": mirror,
+                 "inserted_orderkeys": b1.inserts["l_orderkey"]}
+
+
+# The sqlrest phase's LOAD DATA input: ScaledTpch lineitem at this scale
+# factor (300,060 rows), written as tab-separated text. Cut from 0.1: at
+# 0.1 the statement's one transaction passes kv.TXN_TOTAL_SIZE_LIMIT (100
+# MiB, the reference's) and the step ran 61 s on the card before failing
+LOAD_SF = 0.05
+# The sqlrest phase splits customer, the probe side of Q3 and Q5 and one
+# region as loaded, at evenly spaced handles into this many regions
+# before its per-chunk runs, so that each query's top join yields a
+# chunk per region
+PER_CHUNK_REGIONS = 8
+
+
+def q18_truth(d, mirror, inserted_orderkeys) -> list[tuple]:
+    """tpch.Q18's rows over lineitem as the htap phase left it (the Q1
+    mirror's live rows and quantities, the inserted rows' orders), from
+    the generator's customer and orders: the orders whose quantities sum
+    past 300, with their customer and date, by date and key, 100 rows,
+    as the session formats them."""
+    from decimal import Decimal
+
+    from tidb_tpu_torch.benchmarks import tpch
+    from tidb_tpu_torch.sqltypes import TypeCode, format_datetime
+    ok = np.concatenate([d.l_orderkey,
+                         np.asarray(inserted_orderkeys, dtype=np.int64)])
+    alive = mirror.alive
+    qty = mirror.cols["qty"]
+    sums = np.bincount(ok[alive], weights=qty[alive],
+                       minlength=d.counts["orders"]).astype(np.int64)
+    keys = np.flatnonzero(sums > 300 * 100)
+    order = np.lexsort((keys, d.o_orderdate[keys]))[:100]
+    out = []
+    days = tpch._days_us(d.o_orderdate)
+    for o in keys[order]:
+        out.append((int(d.o_custkey[o]), int(o),
+                    format_datetime(int(days[o]), TypeCode.DATE),
+                    Decimal(int(sums[o])).scaleb(-2)))
+    return out
+
+
+def sqlrest_phase(args, dev, recorded, storage, d, counter, mirror,
+                  inserted_orderkeys) -> tuple[dict, dict]:
+    """The rest of the SQL stack through the port's Session on the htap
+    phase's store (no TPC-H load of its own; lineitem keeps its 4
+    regions). Each statement is held against an exact numpy truth where
+    the phase has the arrays of every table it reads (customer, orders,
+    nation and region are checked unwritten first; lineitem's written
+    state is the htap phase's Q1 mirror), else against the same
+    statement under tidb_tpu_device = 0 or the default setting, and its
+    ledger reads 0 after it. The analytic statements run on the
+    materialized coprocessor (tidb_tpu_copr_stream = 0), as the sql
+    phase's Q3 and Q5 do. In order:
+
+    1. TPC-H Q18 (tpch.Q18): EXPLAIN shows `Apply in (uncorrelated)`;
+       the kernel launched.
+    2. NOT IN (tpch.NOT_IN) and 3. a correlated scalar subquery
+       (tpch.SCALAR_SUBQUERY, 25 inner runs over customer) against
+       np.isin and np.bincount.
+    4. UNION ALL and UNION of a lineitem and an orders aggregate
+       (tpch.UNION_ALL, tpch.UNION): the branches' partial aggregates
+       launched the kernel.
+    5. The cross join tpch.CROSS_JOIN (region x customer, 750,000 joined
+       rows at SF 1): the kernel launched.
+    6. Q3 and Q5 under tidb_tpu_superchunk_rows = 0 (per-chunk device
+       aggregation), each against the default setting's run just before
+       it, with more launches than that fused run (customer split into
+       PER_CHUNK_REGIONS regions first, both runs at
+       tidb_tpu_device_min_rows = 1).
+    7. LOAD DATA of ScaledTpch(LOAD_SF) lineitem from a tab-separated
+       file into lineitem_load (lineitem's DDL): rows/s, the native
+       scanner served every chunk (no fallback); SPLIT TABLE ... REGIONS
+       8 reports 7 splits; Q1 over it equals tpch.q1_truth with 8 cop
+       tasks and the kernel launched.
+    8. ADMIN CHECK TABLE customer, supplier (supplier holds the htap
+       phase's index i_s_nation; its i_c_nation on customer was dropped)
+       passes; ADMIN SHOW DDL JOBS lists the htap phase's index jobs.
+    9. EXPLAIN ANALYZE of warm Q1 and Q3: the root's act_rows equals the
+       rows returned, Q1's reader's kernel cell is filled, and
+       device_time is filled under tidb_tpu_runtime_stats_device = 1;
+       hot Q1's median of 5 runs with tidb_tpu_runtime_stats at 1 and
+       at 0.
+    10. TRACE FORMAT='json' of warm Q1: a balanced tree with admission,
+       sched.slot, dispatch, finalize and a copr.task or copr.stream span
+       on a pool thread; the status port's /trace/<id>/chrome serves it;
+       the digest summary's last_trace_id points at it; the five
+       observability memtables answer with rows; sched.shed_server(0)
+       returns the trace ring's bytes to 0.
+    11. The binlog: a MemoryPump on the storage, one transaction of 1,000
+       UPDATEs of lineitem_load: one event, whose decoded row changes
+       equal the updated rows; then lineitem_load is dropped.
+    The Q18, UNION ALL, cross join, per-chunk Q3 and Q5 and LOAD DATA
+    table's Q1 calls of segment_sum go to recorded["sqlrest-*"].
+    -> (the phase's line, what the server phase takes)."""
+    import statistics
+    import tempfile
+    from decimal import Decimal
+
+    from tidb_tpu_torch import binlog, metrics, sched, trace
+    from tidb_tpu_torch.benchmarks import segsum_bench, tpch
+    from tidb_tpu_torch.executor import loaddata
+    from tidb_tpu_torch.ops import segsum
+    from tidb_tpu_torch.server.status import StatusServer
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.sqltypes import EvalType, format_datetime
+    t_phase = time.perf_counter()
+    sess = Session(storage, db="tpch")
+    out = {"phase": "sqlrest", "sf": min(args.sf, STORE_SF),
+           "load_sf": min(args.sf, LOAD_SF), "steps": {}}
+    # the materialized coprocessor, as the sql phase runs Q3 and Q5: the
+    # htap phase's DDL and GC re-colded every cache, and only this path
+    # fills the chunk cache from a selection plan at SF 1, so the first
+    # statement's scan of each table serves the later ones
+    sess.execute("SET @@tidb_tpu_copr_stream = 0")
+
+    def execute(sql):
+        res = sess.execute(sql)
+        if sess.last_mem_left:
+            raise AssertionError(f"sqlrest {sql[:60]!r}: the statement's "
+                                 f"ledger holds {sess.last_mem_left} B")
+        return res
+
+    def run(step, sql, truth=None, record=None, same=None):
+        """One statement held to `truth` (by `same`, else ==) -> (rows,
+        its line: seconds, launches, join paths, ledger)."""
+        torch.cuda.synchronize()
+        with (segsum_bench.record_calls() if record
+              else contextlib.nullcontext()) as rec:
+            segsum.launches = 0
+            t0 = time.perf_counter()
+            rows = sess.query(sql).rows
+            seconds = time.perf_counter() - t0
+            launches = segsum.launches
+        if rec is not None:
+            recorded[record] = recorded_path(record, rec, launches)
+        st = sess.last_stats
+        if truth is not None and \
+                not (same(rows, truth) if same else rows == truth):
+            raise AssertionError(f"sqlrest {step}: rows differ from the "
+                                 f"truth:\n{rows[:20]}\n{truth[:20]}")
+        if sess.last_mem_left:
+            raise AssertionError(f"sqlrest {step}: the statement's ledger "
+                                 f"holds {sess.last_mem_left} B")
+        if st is not None and st.fallbacks:
+            raise AssertionError(f"sqlrest {step}: fallbacks "
+                                 f"{st.fallback_reasons}")
+        got = {"seconds": seconds, "rows": len(rows),
+               "segsum_launches": launches,
+               "join_paths": dict(st.join_paths) if st is not None else {},
+               "device_batches": st.device_batches if st is not None
+               else 0, "ledger_left": sess.last_mem_left}
+        out["steps"][step] = got
+        return rows, got
+
+    def launched(step, got):
+        if got["segsum_launches"] <= 0:
+            raise AssertionError(f"sqlrest {step}: segment-sum kernel "
+                                 f"never launched {got}")
+
+    def host_rows(sql):
+        execute("SET @@tidb_tpu_device = 0")
+        try:
+            return sess.query(sql).rows
+        finally:
+            execute("SET @@tidb_tpu_device = 1")
+
+    def multiset(rows, truth):
+        return sorted(rows) == sorted(truth)
+
+    # the tables the truths read beside lineitem: as generated
+    unwritten = {
+        "customer": ("SELECT COUNT(*), SUM(c_custkey), SUM(c_nationkey) "
+                     "FROM customer",
+                     [(d.counts["customer"], Decimal(int(d.c_custkey.sum())),
+                       Decimal(int(d.c_nationkey.sum())))]),
+        "orders": ("SELECT COUNT(*), SUM(o_orderkey), SUM(o_custkey) "
+                   "FROM orders",
+                   [(d.counts["orders"], Decimal(int(d.o_orderkey.sum())),
+                     Decimal(int(d.o_custkey.sum())))]),
+        "nation": ("SELECT COUNT(*), SUM(n_regionkey) FROM nation",
+                   [(len(tpch.NATIONS),
+                     Decimal(sum(r for _n, r in tpch.NATIONS)))]),
+        "region": ("SELECT COUNT(*) FROM region",
+                   [(len(tpch.REGIONS),)])}
+    for name, (sql, truth) in unwritten.items():
+        run(f"unwritten_{name}", sql, truth)
+
+    # 1. Q18: the IN subquery with GROUP BY ... HAVING stays an Apply
+    plan = [r[0] for r in sess.query("EXPLAIN " + tpch.Q18).rows]
+    if not any("Apply in (uncorrelated)" in line for line in plan):
+        raise AssertionError(f"sqlrest q18: no uncorrelated Apply {plan}")
+    _rows, got = run("q18", tpch.Q18,
+                     q18_truth(d, mirror, inserted_orderkeys),
+                     record="sqlrest-q18")
+    launched("q18", got)
+    out["q18_plan"] = plan
+
+    # 2. NOT IN and 3. the correlated scalar subquery
+    no_orders = int((~np.isin(d.c_custkey, d.o_custkey)).sum())
+    run("not_in", tpch.NOT_IN, [(no_orders,)])
+    counts = np.bincount(d.c_nationkey, minlength=len(tpch.NATIONS))
+    run("scalar_subquery", tpch.SCALAR_SUBQUERY,
+        sorted((name, int(counts[k]))
+               for k, (name, _r) in enumerate(tpch.NATIONS)))
+
+    # 4. UNION ALL and UNION of two pushed partial aggregates
+    live = mirror.alive
+    flags = np.bincount(mirror.cols["flag"][live],
+                        minlength=len(mirror.flag_names))
+    prios = np.bincount(d.o_orderpriority, minlength=len(tpch.PRIORITIES))
+    branch_rows = [(mirror.flag_names[i], int(c)) for i, c in
+                   enumerate(flags) if c] + \
+        [(p, int(prios[i])) for i, p in enumerate(tpch.PRIORITIES)
+         if prios[i]]
+    _rows, got = run("union_all", tpch.UNION_ALL, branch_rows,
+                     record="sqlrest-union", same=multiset)
+    launched("union_all", got)
+    _rows, got = run("union", tpch.UNION, sorted(set(branch_rows)),
+                     same=multiset)
+    launched("union", got)
+
+    # 5. the cross join
+    cross = [(r, d.counts["customer"], Decimal(int(d.c_nationkey.sum())))
+             for r in tpch.REGIONS]
+    _rows, got = run("cross_join", tpch.CROSS_JOIN, cross,
+                     record="sqlrest-cross", same=multiset)
+    launched("cross_join", got)
+    if got["join_paths"].get("customer") != "cross":
+        raise AssertionError(f"sqlrest cross_join: {got['join_paths']}")
+
+    # 6. per-chunk device aggregation: customer in PER_CHUNK_REGIONS
+    # regions, one chunk each, and every chunk on the device (both runs
+    # of each query at tidb_tpu_device_min_rows = 1: Q5's joined chunks
+    # are a few hundred rows)
+    span = d.counts["customer"] // PER_CHUNK_REGIONS
+    split = sess.query("SPLIT TABLE customer AT " + ", ".join(
+        f"({span * i})" for i in range(1, PER_CHUNK_REGIONS))).rows
+    if split != [(PER_CHUNK_REGIONS - 1,)]:
+        raise AssertionError(f"sqlrest split customer: {split}")
+    (sc_rows, min_rows), = sess.query(
+        "SELECT @@tidb_tpu_superchunk_rows, @@tidb_tpu_device_min_rows").rows
+    execute("SET @@tidb_tpu_device_min_rows = 1")
+    for name in ("q3", "q5"):
+        sql = getattr(tpch, name.upper())
+        fused_rows, fused = run(f"{name}_fused", sql)
+        execute("SET @@tidb_tpu_superchunk_rows = 0")
+        try:
+            _rows, per = run(f"{name}_per_chunk", sql, fused_rows,
+                             record=f"sqlrest-{name}-per-chunk")
+        finally:
+            execute(f"SET @@tidb_tpu_superchunk_rows = {sc_rows}")
+        if per["segsum_launches"] <= fused["segsum_launches"] or \
+                set(per["join_paths"].values()) != {"per-chunk"}:
+            raise AssertionError(f"sqlrest {name} per chunk: {per} against "
+                                 f"the fused run {fused}")
+    execute(f"SET @@tidb_tpu_device_min_rows = {min_rows}")
+
+    # 7. LOAD DATA with the native scanner, SPLIT TABLE, Q1 over it
+    lsf = min(args.sf, LOAD_SF)
+    dl = tpch.ScaledTpch(lsf, args.seed)
+    ddl = [s for s in tpch.DDL.split(";") if "TABLE lineitem" in s][0]
+    execute(ddl.replace("lineitem (", "lineitem_load ("))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lineitem.tsv")
+        t0 = time.perf_counter()
+        n_load = tpch.write_tsv(dl, "lineitem", path)
+        write_s = time.perf_counter() - t0
+        loaddata.reset_scan_stats()
+        t0 = time.perf_counter()
+        loaded = execute(f"LOAD DATA INFILE '{path}' INTO TABLE "
+                         "lineitem_load")
+        load_s = time.perf_counter() - t0
+    scan = loaddata.scan_stats()
+    out["steps"]["load_data"] = {
+        "rows": n_load, "write_tsv_s": write_s, "seconds": load_s,
+        "rows_per_s": n_load / load_s, "scan": scan}
+    if loaded != [n_load] or scan["native_rows"] != n_load or \
+            not scan["native_chunks"] or scan["fallbacks"]:
+        raise AssertionError(f"sqlrest load_data: {loaded} of {n_load} "
+                             f"rows, scanner {scan}")
+    split = sess.query("SPLIT TABLE lineitem_load REGIONS 8").rows
+    if split != [(7,)]:
+        raise AssertionError(f"sqlrest split: {split}")
+    q1_load = tpch.Q1.replace("FROM lineitem", "FROM lineitem_load")
+    _rows, got = run("load_q1", q1_load,
+                     tpch.as_session_rows("q1", tpch.q1_truth(dl)),
+                     record="sqlrest-load-q1")
+    launched("load_q1", got)
+    tasks = sum(o.cop_tasks for o in sess.last_collector.ops()
+                if o.name == "TableReader")
+    got["cop_tasks"] = tasks
+    if tasks != 8:
+        raise AssertionError(f"sqlrest load_q1: {tasks} cop tasks")
+
+    # 8. ADMIN
+    checked = sess.query("ADMIN CHECK TABLE customer, supplier").rows
+    jobs = sess.query("ADMIN SHOW DDL JOBS").rows
+    kinds = sorted({r[1] for r in jobs})
+    out["steps"]["admin"] = {"check": checked, "job_types": kinds}
+    if checked != [("check passed",)] or "add index" not in kinds or \
+            "drop index" not in kinds:
+        raise AssertionError(f"sqlrest admin: {checked} {kinds}")
+
+    # 9. EXPLAIN ANALYZE, device time, the instrumentation's overhead
+    analyzed = {}
+    returned = {"q1": len(mirror.truth()),
+                "q3": out["steps"]["q3_fused"]["rows"]}
+    for name in ("q1", "q3"):
+        sql = getattr(tpch, name.upper())
+        want = returned[name]
+        execute("SET @@tidb_tpu_runtime_stats_device = 1")
+        try:
+            rows = sess.query("EXPLAIN ANALYZE " + sql).rows
+        finally:
+            execute("SET @@tidb_tpu_runtime_stats_device = 0")
+        if sess.last_mem_left:
+            raise AssertionError(f"sqlrest explain analyze {name}: ledger")
+        timed = [r[5] for r in rows if r[5] not in ("-", "0ns")]
+        readers = [r for r in rows if "TableReader" in r[0]]
+        # Q1's reader pushes the aggregate: its kernel cell is filled
+        if rows[0][2] != want or not timed or \
+                (name == "q1" and readers[0][9] == "-"):
+            raise AssertionError(f"sqlrest explain analyze {name}: {rows}")
+        analyzed[name] = [list(r) for r in rows]
+    out["explain_analyze"] = analyzed
+    hot = {}
+    for flag in (1, 0, 1, 0):
+        execute(f"SET @@tidb_tpu_runtime_stats = {flag}")
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.query(tpch.Q1)
+            times.append(time.perf_counter() - t0)
+        hot.setdefault(f"stats_{flag}_s", []).extend(times)
+    execute("SET @@tidb_tpu_runtime_stats = 1")
+    out["hot_q1_runtime_stats"] = {
+        **hot, **{f"{k}_median": statistics.median(v)
+                  for k, v in hot.items()}}
+
+    # 10. TRACE, the ring, /trace/<id>/chrome, the digest, the memtables
+    doc = json.loads(sess.query("TRACE FORMAT='json' " + tpch.Q1)
+                     .rows[0][0])
+    tid = doc["trace_id"]
+    rec = trace.ring_get(tid)
+    names, lanes = set(), set()
+
+    def walk(s):
+        names.add(s.name)
+        if s.name.startswith("copr.") and s.tid != rec["root"].tid:
+            lanes.add(s.tid)
+        for c in s.children:
+            walk(c)
+    walk(rec["root"])
+    need = {"admission", "sched.slot", "dispatch", "finalize"}
+    problems = trace.validate(rec["root"])
+    if not need <= names or not lanes or problems:
+        raise AssertionError(f"sqlrest trace: spans {sorted(names)}, "
+                             f"cop lanes {lanes}, {problems}")
+    status = StatusServer(storage, None)
+    status.start()
+    try:
+        chrome = http_get(status.port, f"/trace/{tid}/chrome")
+    finally:
+        status.close()
+    if not [e for e in chrome["traceEvents"] if e["ph"] == "X"]:
+        raise AssertionError("sqlrest trace: /trace/<id>/chrome is empty")
+    digests = sess.query("SELECT last_trace_id FROM performance_schema."
+                         "events_statements_summary_by_digest").rows
+    if (tid,) not in digests:
+        raise AssertionError(f"sqlrest trace: no digest points at {tid}")
+    memtables = {}
+    for name in ("memory_usage", "resource_usage", "statement_traces",
+                 "kernel_profile", "statement_profile"):
+        memtables[name] = len(sess.query(
+            f"SELECT * FROM information_schema.{name}").rows)
+    if not all(memtables.values()):
+        raise AssertionError(f"sqlrest memtables: {memtables}")
+    ring_before = trace.ring_stats()
+    sched.shed_server(0)
+    ring_after = trace.ring_stats()
+    if ring_after["bytes"] or not ring_before["bytes"]:
+        raise AssertionError(f"sqlrest trace ring: {ring_before} -> "
+                             f"{ring_after} after the shed")
+    out["trace"] = {"trace_id": tid, "spans": len(rec["root"].children),
+                    "span_names": sorted(names), "cop_lanes": len(lanes),
+                    "chrome_events": len(chrome["traceEvents"]),
+                    "memtable_rows": memtables, "ring_before": ring_before,
+                    "ring_after_shed": ring_after}
+
+    # 11. the binlog
+    pump = binlog.MemoryPump()
+    storage.binlog_pump = pump
+    ids = list(range(0, n_load, max(n_load // 1000, 1)))[:1000]
+    try:
+        t0 = time.perf_counter()
+        execute("BEGIN")
+        for h in ids:
+            execute("UPDATE lineitem_load SET l_quantity = l_quantity + 1 "
+                    f"WHERE l_id = {h}")
+        execute("COMMIT")
+        commit_s = time.perf_counter() - t0
+    finally:
+        storage.binlog_pump = None
+    events = pump.events()
+    info = sess.domain.info_schema().table("tpch", "lineitem_load")
+    changes = binlog.decode_row_events(events[0]) if len(events) == 1 \
+        else []
+
+    def row_of(values):
+        row = []
+        for c in info.columns:
+            v = values.get(c.id)
+            if v is None:
+                row.append(None)
+            elif c.ft.eval_type == EvalType.DECIMAL:
+                row.append(Decimal(int(v[1])).scaleb(-int(v[0])))
+            elif c.ft.eval_type == EvalType.DATETIME:
+                row.append(format_datetime(int(v), c.ft.tp))
+            elif isinstance(v, bytes):      # string datums stay bytes
+                row.append(v.decode())
+            else:
+                row.append(v)
+        return tuple(row)
+
+    got_rows = sorted(row_of(c.values) for c in changes
+                      if c.table_id == info.id and c.op == "PUT")
+    want_rows = sess.query("SELECT * FROM lineitem_load WHERE l_id IN (" +
+                           ",".join(map(str, ids)) + ") ORDER BY l_id").rows
+    out["steps"]["binlog"] = {"events": len(events),
+                              "row_changes": len(changes),
+                              "statements": len(ids), "seconds": commit_s}
+    if len(events) != 1 or len(got_rows) != len(ids) or \
+            got_rows != [tuple(r) for r in want_rows]:
+        raise AssertionError(f"sqlrest binlog: {len(events)} events, "
+                             f"{len(got_rows)} row changes for {len(ids)} "
+                             "UPDATEs, or their rows differ")
+    execute("DROP TABLE lineitem_load")
+    execute("SET @@tidb_tpu_copr_stream = 1")
+    sess.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["metrics_traces"] = {k: v for k, v in metrics.snapshot().items()
+                             if k.startswith(metrics.TRACES)}
     return out, {"storage": storage, "d": d, "counter": counter}
 
 
@@ -2556,6 +2961,16 @@ def main() -> int:
     from tidb_tpu_torch.ops import segsum     # raises outside the repo
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *a, **kw):
+        """Run one phase, keeping its wall seconds for the wall line."""
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        walls[name] = time.perf_counter() - t0
+        return res
+
     smi = nvidia_smi()
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2563,24 +2978,29 @@ def main() -> int:
           "device_count": torch.cuda.device_count(), "nvidia_smi": smi})
 
     root = os.path.dirname(os.path.abspath(__file__))
-    emit(build_phase(root))
+    emit(timed("build", build_phase, root))
 
-    parity = check_segsum(dev)
-    d, tables, gen_s = generate(args)
+    parity = timed("parity", check_segsum, dev)
+    d, tables, gen_s = timed("generate", generate, args)
     recorded = {}
-    emit(run_q1_phase(args, dev, d, tables["lineitem"], gen_s, recorded))
+    emit(timed("q1", run_q1_phase, args, dev, d, tables["lineitem"], gen_s,
+               recorded))
     for name in ("q3", "q5"):
-        emit(run_query_phase(name, args, dev, d, tables, recorded))
-    emit(analyze_phase(args, dev, tables))
-    emit(q18_phase(args, dev, d, tables, recorded))
+        emit(timed(name, run_query_phase, name, args, dev, d, tables,
+                   recorded))
+    emit(timed("analyze", analyze_phase, args, dev, tables))
+    emit(timed("q18", q18_phase, args, dev, d, tables, recorded))
     del d, tables
-    emit(store_phase(args, dev, recorded))
-    out, kept = sql_phase(args, dev, recorded)
+    out, kept = timed("sql", sql_phase, args, dev, recorded)
     emit(out)
-    out, kept = htap_phase(args, dev, recorded, **kept)
+    emit(timed("store", store_phase, args, dev, recorded, **kept))
+    out, kept = timed("htap", htap_phase, args, dev, recorded, **kept)
     emit(out)
-    emit(server_phase(args, dev, recorded, **kept))
-    emit(faults_phase(args, dev))
+    out, kept = timed("sqlrest", sqlrest_phase, args, dev, recorded, **kept)
+    emit(out)
+    emit(timed("server", server_phase, args, dev, recorded, **kept))
+    emit(timed("faults", faults_phase, args, dev))
+    t_kernel = time.perf_counter()
 
     # the kernel at every shape the three paths gave it, on their own
     # recorded inputs: held against the plain version, then timed
@@ -2606,6 +3026,9 @@ def main() -> int:
     emit({"phase": "kernel", "name": "segment_sum", **parity,
           "timing": {where: {"launches": calls, "inputs_held": held, **t}
                      for where, _p, calls, _e, held, t in entries}})
+    walls["kernel"] = time.perf_counter() - t_kernel
+    emit({"phase": "wall", "seconds": walls,
+          "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": [{
         "name": f"segment_sum ({where})", "route": "cuda",

@@ -8,8 +8,8 @@ message): codes are compared, not only messages, since `classify`
 matches messages where a typed exception does not decide. It knows the
 port's own exception classes (ExecError, QuotaExceededError,
 AdmissionRejectedError, the KV errors). The reference's own errcode
-cases (`tests/test_binlog_errcode.py` TestErrcode) are replayed against
-the port (its binlog cases need binlog.py, not ported).
+and binlog cases (`tests/test_binlog_errcode.py` TestErrcode and
+TestBinlog) are replayed against the port.
 """
 
 import pytest
@@ -109,9 +109,6 @@ def test_port_exception_classes():
     assert perr.not_ported("TRACE") == "TRACE is not ported yet"
 
 
-replay("test_binlog_errcode.py", globals(), drop={
-    "TestBinlog": "binlog.py is not ported"},
-    subs={"from tidb_tpu import binlog, errcode\n":
-          "from tidb_tpu import errcode\n",
-          "from mysql_client import MiniClient, MySQLError":
-          "from tests.mysql_client import MiniClient, MySQLError"})
+replay("test_binlog_errcode.py", globals(),
+       subs={"from mysql_client import MiniClient, MySQLError":
+             "from tests.mysql_client import MiniClient, MySQLError"})

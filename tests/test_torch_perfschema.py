@@ -9,9 +9,8 @@ memtables' column names and types, and a digest's recorded peak
 (`digest_max_mem`, the admission projection) above 0 for a statement
 that held memory. A statement at or past `tidb_tpu_slow_query_ms` lands
 in the slow-query log with its digest. The reference's own
-`tests/test_perfschema_trace.py` statement-event cases are replayed
-against the port (its trace cases need the trace ring, not ported; the
-digest's `last_trace_id` stays 0).
+`tests/test_perfschema_trace.py` statement-event and trace cases are
+replayed against the port.
 """
 
 import logging
@@ -19,9 +18,11 @@ import logging
 import pytest
 
 from tests.test_torch_server import replay
+from tidb_tpu import config as jconfig
 from tidb_tpu import perfschema as jperf
 from tidb_tpu.session import Session as JSession
 from tidb_tpu.store import new_mock_storage as j_storage
+from tidb_tpu_torch import config as pconfig
 from tidb_tpu_torch import perfschema as pperf
 from tidb_tpu_torch.session import Session as PSession
 from tidb_tpu_torch.store.storage import new_mock_storage as p_storage
@@ -36,8 +37,27 @@ STMTS = ["CREATE TABLE t (id BIGINT PRIMARY KEY, v BIGINT, s VARCHAR(8))",
          "SELECT * FROM nosuch", "SELECT 1; SELECT 2"]
 
 
+# no statement of the fixture retains a trace in either package: a trace
+# id carries the reference's random member nonce, and each package's
+# sampling counter counts every statement its process ran before
+_NO_TRACE = {"tidb_tpu_trace_sample": 0, "tidb_tpu_slow_trace_ms": 0}
+
+
 @pytest.fixture
 def sessions():
+    old = {k: (jconfig.get_var(k), pconfig.get_var(k)) for k in _NO_TRACE}
+    for k, v in _NO_TRACE.items():
+        jconfig.set_var(k, v)
+        pconfig.set_var(k, v)
+    try:
+        yield from _sessions()
+    finally:
+        for k, (jv, pv) in old.items():
+            jconfig.set_var(k, jv)
+            pconfig.set_var(k, pv)
+
+
+def _sessions():
     jperf.reset()
     pperf.reset()
     jst, pst = j_storage(), p_storage(device="cpu")
@@ -124,5 +144,4 @@ def test_credentials_never_reach_the_events():
     st.close()
 
 
-replay("test_perfschema_trace.py", globals(), drop={
-    "TestTrace": "statement tracing (the trace ring, TRACE) is not ported"})
+replay("test_perfschema_trace.py", globals())

@@ -20,11 +20,14 @@ then the same SQL text:
     (tpch.q1_cop_plan): the same columns, filter, group-by and
     aggregates, so the HBM block cache keys agree;
   * every statement's memory ledger reads 0 after it;
-  * a statement kind the port has not ported raises SQLError naming it,
-    and a plan node without an executor raises at build_executor (the
-    transaction, UPDATE/DELETE and index statements and executors are
-    held against the reference in test_torch_txn.py and
-    test_torch_index.py).
+  * the cluster_* memtables (the fleet's, not ported) raise SQLError
+    naming them; a planned Apply and Union build their executors, and
+    under `tidb_tpu_superchunk_rows = 0` Q3 and Q5 aggregate per chunk
+    on the device with the reference's rows (the transaction,
+    UPDATE/DELETE and index statements and executors are held against
+    the reference in test_torch_txn.py and test_torch_index.py; the
+    subqueries, UNION, the cross join, ADMIN, LOAD DATA, TRACE and
+    EXPLAIN ANALYZE in their own test_torch_*.py files).
 
 Both packages run with tidb_tpu_device_min_rows = 1 and
 tidb_tpu_superchunk_rows = 4096, so that at this size the coprocessor,
@@ -44,7 +47,7 @@ from tidb_tpu.session import Session as JSession
 from tidb_tpu.store.storage import new_mock_storage as jnew_storage
 from tidb_tpu_torch import config as pconfig
 from tidb_tpu_torch.benchmarks import tpch as ptpch
-from tidb_tpu_torch.executor import ExecError, build_executor
+from tidb_tpu_torch.executor import build_executor
 from tidb_tpu_torch.plan import physical as pph
 from tidb_tpu_torch.session import SQLError
 from tidb_tpu_torch.session import Session as PSession
@@ -222,8 +225,11 @@ def test_insert_and_select_equal_the_reference(sessions):
         s.execute("DROP TABLE w")
 
 
-UNPORTED = ["TRACE SELECT 1", "EXPLAIN ANALYZE SELECT 1",
-            "SELECT * FROM information_schema.memory_usage"]
+# the memtables over the fleet's membership plane, the one part of the
+# SQL surface the port has not ported
+UNPORTED = ["SELECT * FROM information_schema.cluster_members",
+            "SELECT * FROM information_schema.cluster_processlist",
+            "SELECT * FROM information_schema.cluster_statement_traces"]
 
 
 @pytest.mark.parametrize("sql", UNPORTED)
@@ -234,20 +240,66 @@ def test_unported_statement_raises_by_name(sessions, sql):
     assert psess.query("SELECT COUNT(*) FROM region").rows == [(5,)]
 
 
+_PLANNED = {"PhysApply": "SELECT n_name FROM nation WHERE n_regionkey "
+                         "NOT IN (SELECT r_regionkey FROM region "
+                         "WHERE r_name = 'ASIA')",
+            "PhysUnion": "SELECT r_name FROM region UNION ALL "
+                         "SELECT n_name FROM nation"}
+
+
+def _find(plan, cls):
+    if isinstance(plan, cls):
+        return plan
+    for c in plan.children:
+        got = _find(c, cls)
+        if got is not None:
+            return got
+    return None
+
+
 @pytest.mark.parametrize("node", ["PhysApply", "PhysUnion"])
-def test_unported_executor_raises_at_build(node):
-    with pytest.raises(ExecError, match="not ported yet"):
-        build_executor(getattr(pph, node)())
+def test_unported_executor_raises_at_build(sessions, node):
+    """A planned Apply or Union builds its executor (both raised "not
+    ported yet" at build before the port had them), and the statement
+    gives the reference's rows."""
+    jsess, psess, _d = sessions
+    sql = _PLANNED[node]
+    plan = psess.plan(sql)
+    sub = _find(plan, getattr(pph, node))
+    assert sub is not None
+    op = build_executor(sub)
+    assert op.schema == list(sub.schema.cols)
+    assert_same_rows(psess.query(sql).rows, jsess.query(sql).rows)
+    assert psess.last_mem_left == 0
 
 
-def test_per_chunk_device_agg_raises_by_name(sessions):
-    _jsess, psess, _d = sessions
-    psess.execute("SET @@tidb_tpu_superchunk_rows = 0")
+@pytest.mark.parametrize("name", ["q3", "q5"])
+def test_per_chunk_device_agg_raises_by_name(sessions, name):
+    """tidb_tpu_superchunk_rows = 0 (per-chunk device aggregation, which
+    raised "not ported yet" before the port had it): Q3 and Q5 give the
+    reference's rows, every joined chunk is one device partial aggregate
+    (at this scale the top join can yield a single chunk; the smoke
+    holds "more launches than the fused run" at SF 1), and the ledger
+    reads 0."""
+    jsess, psess, _d = sessions
+    fused = psess.query(_sql(name)).rows
+    fused_batches = psess.last_stats.device_batches
+    want = jsess.query(_sql(name)).rows
+    for s in (jsess, psess):
+        s.execute("SET @@tidb_tpu_superchunk_rows = 0")
     try:
-        with pytest.raises(SQLError, match="not ported yet"):
-            psess.query(ptpch.Q3)
+        got = psess.query(_sql(name)).rows
+        st = psess.last_stats
+        ref = jsess.query(_sql(name)).rows
     finally:
-        psess.execute("SET @@tidb_tpu_superchunk_rows = 4096")
+        for s in (jsess, psess):
+            s.execute("SET @@tidb_tpu_superchunk_rows = 4096")
+    assert_same_rows(got, want)
+    assert_same_rows(got, ref)
+    assert_same_rows(fused, want)
+    assert st.device_batches == st.superchunks >= fused_batches
+    assert st.device_batches > 0 and st.fallbacks == 0
+    assert set(st.join_paths.values()) == {"per-chunk"}
     assert psess.last_mem_left == 0
 
 

@@ -209,6 +209,54 @@ GROUP BY n_name
 ORDER BY revenue DESC
 """
 
+# TPC-H Q18 adapted to the DDL above (it has no c_name or o_totalprice):
+# the IN subquery with GROUP BY ... HAVING cannot be decorrelated, so it
+# plans to an uncorrelated Apply over the three-way join
+Q18 = """
+SELECT c_custkey, o_orderkey, o_orderdate, SUM(l_quantity)
+FROM customer, orders, lineitem
+WHERE o_orderkey IN (SELECT l_orderkey FROM lineitem GROUP BY l_orderkey
+                     HAVING SUM(l_quantity) > 300)
+  AND c_custkey = o_custkey
+  AND o_orderkey = l_orderkey
+GROUP BY c_custkey, o_orderkey, o_orderdate
+ORDER BY o_orderdate, o_orderkey
+LIMIT 100
+"""
+
+# TPC-H Q4: the correlated EXISTS decorrelates into a semi join
+Q4 = """
+SELECT o_orderpriority, COUNT(*) AS order_count
+FROM orders
+WHERE o_orderdate >= DATE '1993-07-01'
+  AND o_orderdate < DATE '1993-07-01' + INTERVAL '3' MONTH
+  AND EXISTS (SELECT * FROM lineitem WHERE l_orderkey = o_orderkey
+              AND l_commitdate < l_receiptdate)
+GROUP BY o_orderpriority
+ORDER BY o_orderpriority
+"""
+
+# NOT IN always plans to an uncorrelated Apply (three-valued NULL logic)
+NOT_IN = ("SELECT COUNT(*) FROM customer WHERE c_custkey NOT IN "
+          "(SELECT o_custkey FROM orders)")
+
+# a correlated scalar subquery: one inner run per nation
+SCALAR_SUBQUERY = ("SELECT n_name, (SELECT COUNT(*) FROM customer "
+                   "WHERE c_nationkey = n_nationkey) FROM nation "
+                   "ORDER BY n_name")
+
+# UNION [ALL] of two partial aggregates pushed to the coprocessor
+UNION_BRANCHES = ("SELECT l_returnflag, COUNT(*) FROM lineitem "
+                  "GROUP BY l_returnflag",
+                  "SELECT o_orderpriority, COUNT(*) FROM orders "
+                  "GROUP BY o_orderpriority")
+UNION_ALL = " UNION ALL ".join(UNION_BRANCHES)
+UNION = " UNION ".join(UNION_BRANCHES)
+
+# a comma join with no key: region x customer, aggregated
+CROSS_JOIN = ("SELECT r_name, COUNT(*), SUM(c_nationkey) FROM region, "
+              "customer GROUP BY r_name")
+
 # per-query input-row accounting (the tables each query scans)
 QUERY_TABLES = {
     "q1": ["lineitem"],
@@ -778,6 +826,37 @@ def _load_columns(d: ScaledTpch, table: str) -> dict:
             lane = np.array(values, dtype=object)[np.asarray(idx)]
         out[name] = np.asarray(lane)
     return out
+
+
+def write_tsv(d: ScaledTpch, table: str, path) -> int:
+    """Write `table` as the tab-separated text LOAD DATA reads by default
+    (no enclosure, `\\` escapes): one line per row, the columns in DDL
+    order, decimals with their two fraction digits, dates as YYYY-MM-DD.
+    -> rows written."""
+    lanes, n = _table_lanes(d, table)
+    cols = []
+    for (_name, ft), lane in zip(TABLE_COLUMNS[table], lanes):
+        if isinstance(lane, tuple):
+            idx, values = lane
+            col = np.array(values, dtype=str)[np.asarray(idx)]
+        elif ft.tp == TypeCode.DATE:
+            days = np.asarray(lane, dtype=np.int64) // 86_400_000_000
+            col = (np.datetime64("1970-01-01", "D") +
+                   days.astype("timedelta64[D]")).astype(str)
+        elif ft.tp == TypeCode.NEWDECIMAL:
+            v = np.asarray(lane, dtype=np.int64)
+            col = np.char.add(np.char.add((v // 100).astype(str), "."),
+                              np.char.zfill((v % 100).astype(str), 2))
+        else:
+            col = np.asarray(lane, dtype=np.int64).astype(str)
+        cols.append(col)
+    line = cols[0]
+    for col in cols[1:]:
+        line = np.char.add(np.char.add(line, "\t"), col)
+    with open(path, "w", encoding="utf-8", newline="") as f:
+        f.write("\n".join(line.tolist()))
+        f.write("\n")
+    return n
 
 
 def load_store(storage, d: ScaledTpch, regions_per_table: int = 4,

@@ -4,7 +4,9 @@ session and its server read.
 A subset of the JAX package's registry, with the same names, types and
 defaults, so one setting means the same thing in both packages.
 `SET [GLOBAL] @@tidb_tpu_x = v` in a session writes through `coerce` and
-`set_var` (GLOBAL) or the session's overlay. Values
+`set_var` (GLOBAL) or the session's overlay; `on_change` hooks run after
+a `set_var` (util/failpoint.py arms the registry from
+`tidb_tpu_failpoints`, a GLOBAL-only variable). Values
 come from the defaults, then from the environment (TIDB_TPU_SUPERCHUNK_ROWS
 and so on), then from `set_var`; `session_overlay` shadows them on one
 thread for a statement's duration, and `current_overlay` hands a
@@ -30,7 +32,9 @@ __all__ = ["get_var", "set_var", "session_overlay", "current_overlay",
            "kernel_profile_cap", "device_enabled", "slow_query_ms",
            "server_mem_quota", "admission_timeout_ms", "stmt_profile_cap",
            "metrics_history_interval_ms", "metrics_history_points",
-           "all_vars", "is_known", "coerce",
+           "runtime_stats_enabled", "runtime_stats_device", "trace_sample",
+           "slow_trace_ms", "trace_log", "failpoints_spec", "on_change",
+           "is_global_only", "all_vars", "is_known", "coerce",
            "SERVER_VERSION", "UnknownVariableError"]
 
 # the version string the server reports (VERSION(), the @@version
@@ -42,7 +46,7 @@ class UnknownVariableError(Exception):
     pass
 
 
-_BOOL, _INT = "bool", "int"
+_BOOL, _INT, _STR = "bool", "int", "str"
 
 _DEFS: dict[str, tuple[str, int]] = {
     # master switch for the device kernels; 0 = the numpy host path
@@ -123,6 +127,24 @@ _DEFS: dict[str, tuple[str, int]] = {
     # statements at/above this wall time land in the slow-query log
     # (ref: config.Log.SlowThreshold, default 300ms)
     "tidb_tpu_slow_query_ms": (_INT, 300),
+    # per-operator runtime statistics (runtime_stats.py): rows, loops
+    # and host wall time per operator for EXPLAIN ANALYZE, the digest
+    # summary, the slow log and the operator metric families
+    "tidb_tpu_runtime_stats": (_BOOL, 1),
+    # device-time attribution: a CUDA event pair around each timed call,
+    # waited on, which SERIALIZES dispatch; off by default (EXPLAIN
+    # ANALYZE's device_time)
+    "tidb_tpu_runtime_stats_device": (_BOOL, 0),
+    # emit every statement's span tree to the tidb_tpu_torch.trace logger
+    "tidb_tpu_trace_log": (_BOOL, 0),
+    # statement-trace sampling (trace.py): every N-th non-internal
+    # statement retains its span tree in the bounded trace ring; 1
+    # retains everything, 0 disables sampling (slow capture and TRACE
+    # still retain). A deterministic counter, not random
+    "tidb_tpu_trace_sample": (_INT, 64),
+    # slow-trace capture: a statement at or over this many milliseconds
+    # retains its tree regardless of sampling; 0 = off
+    "tidb_tpu_slow_trace_ms": (_INT, 300),
     # server-wide memory quota in bytes over the memtrack SERVER root
     # (host + device) for statement admission (sched.AdmissionController);
     # 0 = admission off. A statement whose digest's recorded peak does
@@ -139,14 +161,27 @@ _DEFS: dict[str, tuple[str, int]] = {
     "tidb_tpu_metrics_history_interval_ms": (_INT, 1000),
     # metrics-history ring capacity in points
     "tidb_tpu_metrics_history_points": (_INT, 512),
+    # failpoint arming (util/failpoint.py): "name=spec;name=spec" over
+    # the declared registry. Declarative: a write arms the listed points
+    # and disarms what a previous write armed. GLOBAL scope only
+    "tidb_tpu_failpoints": (_STR, ""),
 }
+
+# vars whose write is a process-wide side effect routed through on_change
+# hooks: a session-scope SET would shadow the value on one thread while
+# arming nothing, so the session refuses it (ER_GLOBAL_VARIABLE)
+_GLOBAL_ONLY = frozenset({"tidb_tpu_failpoints"})
 
 _vals: dict[str, int] = {}
 _lock = threading.Lock()
 _tls = threading.local()
+# name -> [fn]: set_var runs them after the write, with _lock dropped
+_hooks: dict[str, list] = {}        # guarded-by: _lock
 
 
 def _coerce(tp: str, value) -> int:
+    if tp == _STR:
+        return "" if value is None else str(value)
     if isinstance(value, str):
         v = value.strip().lower()
         if tp == _BOOL and v in ("on", "true"):
@@ -212,8 +247,35 @@ def set_var(name: str, value) -> None:
     key = name.lower()
     if key not in _DEFS:
         raise UnknownVariableError(name)
+    new = _coerce(_DEFS[key][0], value)
     with _lock:
-        _vals[key] = _coerce(_DEFS[key][0], value)
+        prev = _vals.get(key)
+        _vals[key] = new
+        hooks = list(_hooks.get(key, ()))
+    try:
+        for fn in hooks:
+            fn(new)
+    except Exception:
+        # a hook that rejects the value (a bad failpoint spec) must not
+        # leave the registry claiming a value that never took effect;
+        # compare-and-restore, so a concurrent write is not clobbered
+        with _lock:
+            if _vals.get(key) == new:
+                _vals[key] = prev
+        raise
+
+
+def on_change(name: str, fn) -> None:
+    """Register fn(new_value) to run after every set_var(name)."""
+    key = name.lower()
+    if key not in _DEFS:
+        raise UnknownVariableError(name)
+    with _lock:
+        _hooks.setdefault(key, []).append(fn)
+
+
+def is_global_only(name: str) -> bool:
+    return name.lower() in _GLOBAL_ONLY
 
 
 def all_vars() -> dict[str, int]:
@@ -369,3 +431,27 @@ def metrics_history_interval_ms() -> int:
 
 def metrics_history_points() -> int:
     return min(max(16, _read("tidb_tpu_metrics_history_points")), 1 << 16)
+
+
+def runtime_stats_enabled() -> bool:
+    return bool(_read("tidb_tpu_runtime_stats"))
+
+
+def runtime_stats_device() -> bool:
+    return bool(_read("tidb_tpu_runtime_stats_device"))
+
+
+def trace_sample() -> int:
+    return max(0, _read("tidb_tpu_trace_sample"))
+
+
+def slow_trace_ms() -> int:
+    return max(0, _read("tidb_tpu_slow_trace_ms"))
+
+
+def trace_log() -> bool:
+    return bool(_read("tidb_tpu_trace_log"))
+
+
+def failpoints_spec() -> str:
+    return str(_read("tidb_tpu_failpoints") or "")

@@ -27,9 +27,8 @@ class ExecError(kv.KVError):
 
 def build_executor(plan):
     """The operator tree that runs physical plan `plan` (ref:
-    executorBuilder.build, builder.go:62-146). A plan node whose
-    executor the port lacks raises ExecError ("... is not ported
-    yet")."""
+    executorBuilder.build, builder.go:62-146), each operator wrapped for
+    the active runtime-stats collector."""
     from tidb_tpu_torch.executor.builder import build
     return build(plan)
 

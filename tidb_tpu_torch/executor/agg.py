@@ -46,10 +46,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from tidb_tpu_torch import config, memtrack, profiler, sched
+from tidb_tpu_torch import config, memtrack, profiler, runtime_stats, sched
 from tidb_tpu_torch.chunk import Chunk, Column
-from tidb_tpu_torch.errcode import not_ported
-from tidb_tpu_torch.executor import ExecContext, ExecError, ExecStats
+from tidb_tpu_torch.executor import ExecContext, ExecStats
 from tidb_tpu_torch.executor.join import HashJoin
 from tidb_tpu_torch.expression import AggFunc
 from tidb_tpu_torch.ops import runtime, segsum
@@ -148,13 +147,14 @@ def escalating_pipeline(batches, kernel, dispatch, finalize, escalate,
 
 
 def superchunk_partials(chunks, filter_expr, group_exprs, aggs,
-                        ctx: ExecContext, on_miss, tracker=None):
+                        ctx: ExecContext, on_miss, tracker=None, op=None):
     """Coalesced device partial aggregation of `chunks` -> GroupResults in
     order. A batch below tidb_tpu_device_min_rows aggregates on the host
     (designed, counted in host_batches); a capacity miss re-plans once
     and later batches dispatch with the larger kernel; a miss that
     survives, or a collision, goes to on_miss(chunk, reason). `tracker`
-    (a memtrack node) bills the superchunk staging."""
+    (a memtrack node) bills the superchunk staging; the blocking readback
+    of each device batch is `op`'s finalize wait (runtime_stats)."""
     stats = ctx.stats
     group_exprs = list(group_exprs)
     kernel = None
@@ -178,7 +178,13 @@ def superchunk_partials(chunks, filter_expr, group_exprs, aggs,
         if pending is None:
             stats.host_batches += 1
             return _host_agg(chunk, filter_expr, group_exprs, aggs)
-        gr = k.finalize(chunk, pending)
+        t0 = time.perf_counter_ns()
+        try:
+            gr = k.finalize(chunk, pending)
+        finally:
+            if op is not None:
+                runtime_stats.note_finalize_wait(
+                    op, time.perf_counter_ns() - t0)
         stats.device_batches += 1
         return gr
 
@@ -250,11 +256,15 @@ class HashAgg:
     `chunks(ctx)` yields one Chunk: the group columns, then one column
     per aggregate."""
 
-    def __init__(self, child, group_exprs, aggs):
+    def __init__(self, child, group_exprs, aggs, plan=None):
         self.child = child
         self.group_exprs = list(group_exprs)
         self.aggs = list(aggs)
         self.schema = _agg_schema(self.group_exprs, self.aggs)
+        # the plan node the per-chunk kernel lives on (None for the
+        # hand-built drivers, which make no plans)
+        self.plan = plan
+        self._kernel = getattr(plan, "_root_kernel", None)
 
     def chunks(self, ctx):
         agg = HashAggregator(self.aggs, self.group_exprs)
@@ -269,9 +279,7 @@ class HashAgg:
                           for chunk in self.child.chunks(ctx)
                           if chunk.num_rows)
             elif not config.superchunk_rows():
-                raise ExecError(not_ported(
-                    "per-chunk device aggregation (tidb_tpu_superchunk_rows"
-                    " = 0)"))
+                source = self._per_chunk_partials(ctx)
             else:
                 frag = self._fragment_kernel(ctx)
                 source = self._fused_partials(ctx, frag) \
@@ -288,6 +296,98 @@ class HashAgg:
             yield _results_chunk(self.schema, results)
         finally:
             memtrack.release(self, host=tracked)
+
+    def _per_chunk_partials(self, ctx):
+        """Superchunk coalescing off (tidb_tpu_superchunk_rows = 0): each
+        child chunk of at least tidb_tpu_device_min_rows rows is one
+        synchronous device partial aggregate, the rest (and a plan that
+        is not device-safe) aggregate on the host."""
+        stats = ctx.stats
+        min_rows = config.device_min_rows()
+        for chunk in self.child.chunks(ctx):
+            if chunk.num_rows == 0:
+                continue
+            stats.superchunks += 1
+            gr = None
+            if chunk.num_rows >= min_rows:
+                gr = self._device_partial(ctx, chunk)
+            if gr is None:
+                stats.host_batches += 1
+                gr = host_hash_agg(chunk, None, self.group_exprs, self.aggs)
+            else:
+                stats.device_batches += 1
+            yield gr
+
+    def _set_kernel(self, kernel) -> None:
+        self._kernel = kernel
+        # kernels live on the plan object: the plan cache shares plans
+        # across executions (and an Apply re-runs its inner plan per
+        # outer row), so the kernel outlives any one operator tree
+        if self.plan is not None:
+            self.plan._root_kernel = kernel
+
+    def _escalated_kernel(self, ctx, e: CapacityError):
+        cap = escalated_capacity(getattr(e, "needed", 0))
+        if cap is None:
+            return None
+        try:
+            k = kernel_for(None, self.group_exprs, self.aggs, capacity=cap,
+                           device=ctx.device)
+        except ValueError:
+            return None
+        self._set_kernel(k)
+        return k
+
+    def _device_call(self, ctx, k, chunk):
+        nb = k.dispatch_nbytes(chunk)
+        with sched.device_slot(), memtrack.device_scope(self, nb), \
+                profiler.dispatch_section(profiler.profile_of(k),
+                                          nbytes=nb, plan=self):
+            gr = runtime_stats.device_call(self, k, chunk,
+                                           device=ctx.device)
+        runtime_stats.note_mode(self, "hash")
+        return gr
+
+    def _device_partial(self, ctx, chunk):
+        """One chunk's device partial aggregate. A capacity miss re-plans
+        once with a bigger table; a miss that survives (or a collision)
+        radix-partitions the chunk and retries per partition
+        (ops/hybrid.partitioned_agg). None only for a plan that is not
+        device-safe by design: the caller's host path, counted as an
+        "unsupported" fallback."""
+        try:
+            if self._kernel is None:
+                self._set_kernel(kernel_for(None, self.group_exprs,
+                                            self.aggs, device=ctx.device))
+            return self._device_call(ctx, self._kernel, chunk)
+        except CapacityError as e:
+            reason = "capacity"
+            profiler.note_escalation(profiler.profile_of(self._kernel))
+            k = self._escalated_kernel(ctx, e)
+            if k is not None:
+                try:
+                    return self._device_call(ctx, k, chunk)
+                except CapacityError:
+                    pass
+                except CollisionError:
+                    reason = "collision"
+                except (DeviceRejectError, NotImplementedError):
+                    ctx.stats.note_fallback("unsupported")
+                    runtime_stats.note_fallback(self, "unsupported")
+                    return None
+            runtime_stats.note_mode(self, "hybrid")
+            return partitioned_agg(chunk, None, self.group_exprs, self.aggs,
+                                   ctx.stats, reason=reason,
+                                   device=ctx.device)
+        except CollisionError:
+            runtime_stats.note_mode(self, "hybrid")
+            return partitioned_agg(chunk, None, self.group_exprs, self.aggs,
+                                   ctx.stats, reason="collision",
+                                   device=ctx.device)
+        except (DeviceRejectError, NotImplementedError):
+            ctx.stats.note_fallback("unsupported")
+            runtime_stats.note_fallback(self, "unsupported")
+        return None
 
     def _fragment_kernel(self, ctx):
         """A ProbeAggKernel when this agg can fuse with its child join
@@ -371,7 +471,12 @@ class HashAgg:
                 stats.host_batches += 1
                 return decoded_batch(tok[1], sc)
             pk, pend = tok
-            return k.finalize(sc, build, nb, pend)
+            t0 = time.perf_counter_ns()
+            try:
+                return k.finalize(sc, build, nb, pend)
+            finally:
+                runtime_stats.note_finalize_wait(
+                    self, time.perf_counter_ns() - t0)
 
         def on_miss(sc, tok, reason):
             stats.note_fallback(reason)
@@ -413,7 +518,7 @@ class HashAgg:
                                    device=ctx.device)
         return superchunk_partials(chunks, None, self.group_exprs,
                                    self.aggs, ctx, on_miss,
-                                   tracker=memtrack.op_node(self))
+                                   tracker=memtrack.op_node(self), op=self)
 
 
 def _agg_schema(group_exprs, aggs):
@@ -767,7 +872,7 @@ def _store_of(sf: float, seed: int, device, storage):
 
 
 def _run_store_query(name: str, sf: float, seed: int, device,
-                     storage) -> QueryResult:
+                     storage, infos=None) -> QueryResult:
     """Q3 or Q5 over the store as one statement: the plan's TableReader
     leaves send their selection CopPlans at one snapshot, and HashJoin /
     HashAgg run above them as over chunks in hand."""
@@ -775,7 +880,7 @@ def _run_store_query(name: str, sf: float, seed: int, device,
     from tidb_tpu_torch.benchmarks import tpch
     storage = _store_of(sf, seed, device, storage)
     build, finish = tpch.STORE_PLANS[name]
-    plan = build(tpch.table_infos())
+    plan = build(infos or tpch.table_infos())
     ctx = ExecContext(storage.device, storage=storage,
                       read_ts=storage.current_ts())
     coll = runtime_stats.StatsCollector()
@@ -794,23 +899,26 @@ def _run_store_query(name: str, sf: float, seed: int, device,
 
 
 def run_q3_store(sf: float = 1.0, seed: int = 42, device=None,
-                 storage=None) -> QueryResult:
+                 storage=None, infos=None) -> QueryResult:
     """TPC-H Q3 served from the mock TiKV store on `device` (CUDA unless
     the caller asks for another): customer, orders and lineitem read by
     TableReaders through the coprocessor (streamed by default, from the
     chunk cache once warm), joined and aggregated as run_q3 does, then
     its TopN. Without `storage` a store is made and ScaledTpch(sf, seed)
     loaded into it; pass the `storage` of an earlier result to run again
-    over the same store. -> QueryResult with `groups` (every HashAgg
-    group before the TopN) and `rows` in run_q3's layout."""
-    return _run_store_query("q3", sf, seed, device, storage)
+    over the same store, and with it `infos` ({table: TableInfo}) where
+    the store was loaded through a Session (the TableInfos CREATE TABLE
+    made; by default the hand-built `tpch.table_infos()`). -> QueryResult
+    with `groups` (every HashAgg group before the TopN) and `rows` in
+    run_q3's layout."""
+    return _run_store_query("q3", sf, seed, device, storage, infos)
 
 
 def run_q5_store(sf: float = 1.0, seed: int = 42, device=None,
-                 storage=None) -> QueryResult:
+                 storage=None, infos=None) -> QueryResult:
     """TPC-H Q5 served from the mock TiKV store on `device`: the six
     tables read by TableReaders, as run_q3_store reads Q3's."""
-    return _run_store_query("q5", sf, seed, device, storage)
+    return _run_store_query("q5", sf, seed, device, storage, infos)
 
 
 def run_q18_inner(sf: float = 10.0, seed: int = 42, device=None,

@@ -12,39 +12,41 @@ plain inner HashJoin fuses probe and partial aggregation per probe
 superchunk (executor/agg.py). The plan's output schema (a list of
 plan/resolver.SchemaCol) becomes the operator's `schema`.
 
-Apply, Union and the cross join (a keyless HashJoin) have no port yet:
-building one raises ExecError ("... is not ported yet").
+Every node built passes through runtime_stats.instrument, which wraps
+the operator's output methods for the statement's runtime-stats
+collector and links the operator (and a reader's CopPlans) to the plan
+node's stats and memtrack rows, as the reference's build_executor does
+(executor/__init__.py:111).
 """
 
 from __future__ import annotations
 
-from tidb_tpu_torch.errcode import not_ported
+from tidb_tpu_torch import runtime_stats
 from tidb_tpu_torch.executor import ExecError
 from tidb_tpu_torch.executor.agg import HashAgg, StreamAgg
+from tidb_tpu_torch.executor.apply import Apply
 from tidb_tpu_torch.executor.join import HashJoin, IndexJoin, MergeJoin
 from tidb_tpu_torch.executor.reader import (IndexLookUp, IndexReader,
                                             TableReader)
 from tidb_tpu_torch.executor.root import (FinalAgg, Limit, PointGet,
                                           Projection, Selection, Sort, TopN,
-                                          Values)
+                                          Union, Values)
 from tidb_tpu_torch.executor.write import (Delete, Insert, MultiDelete,
                                            MultiUpdate, Update)
 from tidb_tpu_torch.plan import physical as ph
 
 __all__ = ["build"]
 
-# plan nodes the reference executes and the port does not yet
-_UNPORTED = (ph.PhysApply, ph.PhysUnion)
-
 
 def build(plan):
     b = _BUILDERS.get(type(plan))
-    if b is not None:
-        return b(plan)
-    name = type(plan).__name__.removeprefix("Phys")
-    if isinstance(plan, _UNPORTED):
-        raise ExecError(not_ported(f"the {name} executor"))
-    raise ExecError(f"no executor for {type(plan).__name__}")
+    if b is None:
+        raise ExecError(f"no executor for {type(plan).__name__}")
+    op = b(plan)
+    # children are built (and wrapped) inside the builder above, so
+    # every node of the tree passes through here once per execution
+    runtime_stats.instrument(op, plan)
+    return op
 
 
 def _cols(plan) -> list:
@@ -82,7 +84,7 @@ def _final_agg(p: ph.PhysFinalAgg):
 
 
 def _hash_agg(p: ph.PhysHashAgg):
-    op = HashAgg(build(p.children[0]), p.group_exprs, p.aggs)
+    op = HashAgg(build(p.children[0]), p.group_exprs, p.aggs, plan=p)
     op.schema = _cols(p)
     return op
 
@@ -95,10 +97,7 @@ def _stream_agg(p: ph.PhysStreamAgg):
 
 
 def _hash_join(p: ph.PhysHashJoin):
-    if not p.left_keys:
-        # the reference's HashJoinExec runs a keyless join as a cross
-        # join (_cross_join)
-        raise ExecError(not_ported("the cross join"))
+    # a keyless join runs as a cross join (HashJoin._cross_join)
     op = HashJoin(build(p.children[0]), build(p.children[1]),
                   p.left_keys, p.right_keys, join_type=p.join_type,
                   other_cond=p.other_cond,
@@ -122,6 +121,14 @@ def _index_join(p: ph.PhysIndexJoin):
                    join_type=p.join_type, other_cond=p.other_cond)
     op.schema = _cols(p)
     return op
+
+
+def _apply(p: ph.PhysApply):
+    return Apply(build(p.children[0]), p)
+
+
+def _union(p: ph.PhysUnion):
+    return Union([build(c) for c in p.children], _cols(p))
 
 
 def _selection(p: ph.PhysSelection):
@@ -173,6 +180,8 @@ def _multi_delete(p: ph.PhysMultiDelete):
 
 
 _BUILDERS = {
+    ph.PhysApply: _apply,
+    ph.PhysUnion: _union,
     ph.PhysTableReader: _table_reader,
     ph.PhysIndexReader: _index_reader,
     ph.PhysIndexLookUp: _index_lookup,

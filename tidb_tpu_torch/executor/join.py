@@ -33,8 +33,10 @@ Every dispatch goes through the device plane: the pipelined and hybrid
 probes take a scheduler slot per in-flight token (ops/runtime.
 pipeline_map), the per-chunk path one per sync call (sched.device_slot).
 
-Left out: the mesh shuffle kernel (the multi-device plane), the cross
-join and the runtime-stats hooks.
+A join without an equi-key is a cross join (`_cross_join`): the build
+materializes once and each probe chunk joins with all of it on the host.
+
+Left out: the mesh shuffle kernel (the multi-device plane).
 """
 
 from __future__ import annotations
@@ -161,6 +163,9 @@ class HashJoin:
         return getattr(self.right, "table", "?")
 
     def chunks(self, ctx):
+        if not self.left_keys:
+            yield from self._cross_join(ctx)
+            return
         build = Chunk.concat_all(list(self.right.chunks(ctx)))
         nb = build.num_rows if build is not None else 0
         # the materialized build side is the join's dominant host buffer:
@@ -245,6 +250,39 @@ class HashJoin:
             un = np.flatnonzero(~matched_build)
             if len(un):
                 yield self._emit_right_unmatched(build, un)
+
+    def _cross_join(self, ctx):
+        """A join with no equi-key (comma join, ON without an equality):
+        every probe row against every build row, the other condition
+        filtering the product. The materialized build is billed to the
+        operator's ledger for the whole probe phase."""
+        build = None
+        tracked = 0
+        for chunk in self.right.chunks(ctx):
+            build = chunk if build is None else build.concat(chunk)
+            tracked = memtrack.track_to(self, memtrack.chunk_bytes(build),
+                                        tracked)
+        ctx.stats.join_paths[self.build_label()] = "cross"
+        if build is None or build.num_rows == 0:
+            memtrack.release(self, host=tracked)
+            return
+        try:
+            yield from self._cross_probe(ctx, build)
+        finally:
+            memtrack.release(self, host=tracked)
+
+    def _cross_probe(self, ctx, build):
+        nb = build.num_rows
+        for chunk in self.left.chunks(ctx):
+            nl = chunk.num_rows
+            if nl == 0:
+                continue
+            li = np.repeat(np.arange(nl), nb)
+            ri = np.tile(np.arange(nb), nl)
+            out = self._gather(chunk, build, li, ri)
+            if self.other_cond is not None:
+                out = out.filter(eval_filter_host(self.other_cond, out))
+            yield out
 
     def _post_match(self, chunk, build, li, ri, matched_build):
         """Shared tail after pair matching for one probe batch: other_cond

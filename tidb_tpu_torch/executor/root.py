@@ -19,11 +19,12 @@ from tidb_tpu_torch.chunk import Chunk, Column
 from tidb_tpu_torch.executor.agg import _empty_agg_value, _results_chunk
 from tidb_tpu_torch.ops.hashagg import HashAggregator
 from tidb_tpu_torch.ops.runtime import eval_filter_host
-from tidb_tpu_torch.sqltypes import np_dtype_for, object_fill
+from tidb_tpu_torch.sqltypes import (EvalType, format_datetime, np_dtype_for,
+                                     object_fill, scaled_to_decimal)
 from tidb_tpu_torch.table import kvrows_to_chunk
 
 __all__ = ["FinalAgg", "Selection", "Projection", "Limit", "Sort", "TopN",
-           "Values", "PointGet"]
+           "Values", "PointGet", "Union"]
 
 
 class FinalAgg:
@@ -259,3 +260,55 @@ class PointGet:
         if self.filter is not None and chunk.num_rows:
             chunk = chunk.filter(eval_filter_host(self.filter, chunk))
         yield chunk
+
+
+class Union:
+    """UNION ALL over the children's chunk streams, in order, each column
+    coerced to the union's output type (MySQL's widening: to a string
+    where any branch is a string, to the common decimal scale, to a
+    double); DISTINCT is a HashAgg the planner puts on top."""
+
+    def __init__(self, children, schema):
+        self.children = list(children)
+        self.schema = list(schema)
+
+    @staticmethod
+    def _coerce(c: Column, ft) -> Column:
+        d, src = c.data, c.ft
+        if ft.eval_type == EvalType.STRING and \
+                src.eval_type != EvalType.STRING:
+            # a mixed string/numeric union: MySQL coerces to a string
+            if src.eval_type == EvalType.DECIMAL:
+                vals = [str(scaled_to_decimal(int(x), src.frac))
+                        for x in d]
+            elif src.eval_type == EvalType.DATETIME:
+                vals = [format_datetime(int(x), src.tp) for x in d]
+            elif d.dtype == np.float64:
+                vals = [repr(float(x)) for x in d]
+            else:
+                vals = [str(int(x)) for x in d]
+            return Column(ft, np.array(vals, dtype=object), c.valid.copy())
+        if ft.eval_type == EvalType.DECIMAL:
+            if src.eval_type == EvalType.DECIMAL:
+                if ft.frac > src.frac:
+                    d = d.astype(np.int64) * np.int64(
+                        10 ** (ft.frac - src.frac))
+            elif src.eval_type == EvalType.INT:
+                d = d.astype(np.int64) * np.int64(10 ** ft.frac)
+        elif ft.eval_type == EvalType.REAL:
+            if src.eval_type == EvalType.DECIMAL:
+                d = d.astype(np.float64) / (10.0 ** src.frac)
+            elif d.dtype != np.float64 and d.dtype != np.dtype(object):
+                d = d.astype(np.float64)
+        else:
+            want = np_dtype_for(ft.tp, ft.flen)
+            if d.dtype != want:
+                d = d.astype(want)
+        return Column(ft, d, c.valid.copy())
+
+    def chunks(self, ctx):
+        fts = [c.ft for c in self.schema]
+        for child in self.children:
+            for chunk in child.chunks(ctx):
+                yield Chunk([self._coerce(c, ft)
+                             for c, ft in zip(chunk.columns, fts)])

@@ -275,6 +275,17 @@ class MemTracker:
             ent = self._nodes.setdefault(id(plan), (plan, child))
         return ent[1]
 
+    def link(self, alias, node: "MemTracker") -> None:
+        """Route charges made against `alias` (an operator object, a
+        reader's CopPlan executed storage-side) onto `node`."""
+        with self._mu:
+            self._nodes[id(alias)] = (alias, node)
+
+    def get(self, plan) -> "MemTracker | None":
+        with self._mu:
+            ent = self._nodes.get(id(plan))
+        return ent[1] if ent is not None else None
+
     # -- lifecycle -----------------------------------------------------------
 
     def detach(self) -> None:

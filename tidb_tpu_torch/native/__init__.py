@@ -1,10 +1,12 @@
-"""Native (C++) row decoder, loaded via ctypes with graceful fallback.
+"""Native (C++) row decoder and LOAD DATA scanner, loaded via ctypes with
+graceful fallback.
 
-The port's copy of the JAX package's native/__init__.py for codec.cc
-(the LOAD DATA scanner, loadscan.cc, is not on the storage path and is
-not ported yet). The shared library is compiled on first use with the
-system g++ into tidb_tpu_torch/_build/ (keyed by source mtime); without a
-compiler the callers run the pure-Python decoder. Beside the reference's
+The port's copy of the JAX package's native/__init__.py: codec.cc (the
+row decoder) and loadscan.cc (the LOAD DATA field scanner,
+`scan_rows_native`). Each shared library is compiled on first use with
+the system g++ into tidb_tpu_torch/_build/ (keyed by source mtime);
+without a compiler the callers run the pure-Python decoder and scanner
+(executor/loaddata.py counts that fallback). Beside the reference's
 int, float, decimal and handle kinds, the port's codec.cc decodes byte
 strings (NATIVE_KIND_BYTES) into an arena that `decode_rows_native`
 turns into the same str values the Python decoder gives.
@@ -20,7 +22,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["lib", "decode_rows_native", "NATIVE_KIND_INT",
+__all__ = ["lib", "decode_rows_native", "scan_rows_native",
+           "NATIVE_KIND_INT",
            "NATIVE_KIND_FLOAT", "NATIVE_KIND_DECIMAL", "NATIVE_KIND_HANDLE",
            "NATIVE_KIND_BYTES"]
 
@@ -72,6 +75,73 @@ def _build() -> ctypes.CDLL | None:
         ctypes.POINTER(ctypes.c_void_p),
     ]
     return cdll
+
+
+def _build_loadscan() -> ctypes.CDLL | None:
+    cdll = _compile("loadscan")
+    if cdll is None:
+        return None
+    cdll.scan_rows.restype = ctypes.c_int64
+    P64 = ctypes.POINTER(ctypes.c_int64)
+    P8 = ctypes.POINTER(ctypes.c_uint8)
+    cdll.scan_rows.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_uint8, ctypes.c_uint8, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int64, ctypes.c_int32,
+        P64, P64, P8, P64, ctypes.c_int64, ctypes.c_int64, P64, P64,
+    ]
+    return cdll
+
+
+_scan_lock = threading.Lock()
+_scan_lib = None
+_scan_tried = False
+
+
+def _loadscan_lib() -> ctypes.CDLL | None:
+    global _scan_lib, _scan_tried
+    if _scan_tried:
+        return _scan_lib
+    with _scan_lock:
+        if not _scan_tried:
+            _scan_lib = _build_loadscan()
+            _scan_tried = True
+    return _scan_lib
+
+
+def scan_rows_native(data: bytes, ft: bytes, lt: bytes, enc: bytes,
+                     esc: bytes, ignore_lines: int,
+                     final_chunk: bool = True):
+    """Scan LOAD DATA text into field spans.
+
+    -> (consumed_bytes, rowoff int64[nr+1], fstart, fend, fflags) or
+    None when the native scanner is unavailable. consumed < len(data)
+    means the caller must run the general scanner on the remainder."""
+    cdll = _loadscan_lib()
+    if cdll is None:
+        return None
+    n = len(data)
+    # upper bounds: every separator byte could open a field/row
+    max_fields = data.count(ft) + data.count(lt) + 2
+    max_rows = data.count(lt) + 2
+    fstart = np.empty(max_fields, dtype=np.int64)
+    fend = np.empty(max_fields, dtype=np.int64)
+    fflags = np.empty(max_fields, dtype=np.uint8)
+    rowoff = np.zeros(max_rows + 1, dtype=np.int64)
+    out = np.zeros(2, dtype=np.int64)
+    P64 = ctypes.POINTER(ctypes.c_int64)
+    P8 = ctypes.POINTER(ctypes.c_uint8)
+    consumed = cdll.scan_rows(
+        data, n, ft[0], lt[0],
+        enc[0] if enc else -1, esc[0] if esc else -1,
+        ignore_lines, 1 if final_chunk else 0,
+        fstart.ctypes.data_as(P64), fend.ctypes.data_as(P64),
+        fflags.ctypes.data_as(P8), rowoff.ctypes.data_as(P64),
+        max_fields, max_rows,
+        out[0:].ctypes.data_as(P64), out[1:].ctypes.data_as(P64))
+    nr, nf = int(out[0]), int(out[1])
+    return (int(consumed), rowoff[:nr + 1], fstart[:nf], fend[:nf],
+            fflags[:nf])
 
 
 def lib() -> ctypes.CDLL | None:

@@ -451,11 +451,16 @@ def finalize_group_result(chunk: Chunk, group_exprs, aggs, gidx: np.ndarray,
     FIRST_ROW values, and package a GroupResult."""
     sub = chunk.take(rep_rows)
     key_cols = []
+    n = len(gidx)
     for g in group_exprs:
         d, v = g.eval(sub)
-        key_cols.append([None if not v[i] else
-                         (d[i].item() if hasattr(d[i], "item") else d[i])
-                         for i in range(len(gidx))])
+        # tolist() gives each numpy scalar's .item() (an object array's
+        # elements as they are), in one pass
+        vals = d[:n].tolist() if isinstance(d, np.ndarray) else \
+            [(d[i].item() if hasattr(d[i], "item") else d[i])
+             for i in range(n)]
+        key_cols.append([x if ok else None
+                         for x, ok in zip(vals, np.asarray(v)[:n].tolist())])
     keys = list(zip(*key_cols)) if key_cols else [()] * len(gidx)
     partials = []
     for a, ls in zip(aggs, lanes_per_agg):
@@ -765,6 +770,41 @@ def kernel_for(filter_expr, group_exprs, aggs, capacity: int = 4096,
     return k
 
 
+def _finalizer(agg):
+    """cur (an aggregate's merged lanes) -> its final value: AVG
+    finalized; SUM/AVG of decimals stay scaled ints."""
+    fn = agg.fn
+    if fn == AggFunc.COUNT:
+        return lambda cur: int(cur[0])
+    if fn in (AggFunc.SUM, AggFunc.MIN, AggFunc.MAX, AggFunc.FIRST_ROW,
+              AggFunc.GROUP_CONCAT):
+        # `not cur[1]` is `cur[1] == 0` for the has/count lane's ints and
+        # floats, without building a numpy bool per group
+        return lambda cur: None if not cur[1] else cur[0]
+    if fn == AggFunc.AVG:
+        if agg.result_ft.eval_type == EvalType.DECIMAL:
+            extra = agg.result_ft.frac - agg.arg.ft.frac
+
+            def avg(cur):
+                if cur[1] == 0:
+                    return None
+                # scaled-int avg in EXACT integer arithmetic (half-up;
+                # float division corrupts wide decimals)
+                num = int(cur[0]) * (10 ** extra)
+                den = int(cur[1])
+                q, r = divmod(abs(num), den)
+                if 2 * r >= den:
+                    q += 1
+                return q if num >= 0 else -q
+            return avg
+        return lambda cur: None if cur[1] == 0 else \
+            float(cur[0]) / float(cur[1])
+
+    def unknown(cur):
+        raise NotImplementedError(fn)
+    return unknown
+
+
 class HashAggregator:
     """Stateful final aggregator: merges chunk partials on the host and
     finalizes per-group values (the reference's partial/final split)."""
@@ -777,6 +817,7 @@ class HashAggregator:
         self._orig: dict[tuple, tuple] = {}
         self._ci = [getattr(g, "ft", g).is_ci for g in group_meta] \
             if group_meta else None
+        self._any_ci = bool(self._ci) and any(self._ci)
 
     def approx_bytes(self) -> int:
         """Rough host footprint of the merged state (dict slots, key
@@ -792,32 +833,40 @@ class HashAggregator:
         return n * (96 + 56 * len(key) + 48 * lanes)
 
     def _group_key(self, key: tuple) -> tuple:
-        if not self._ci or not any(self._ci):
+        if not self._any_ci:
             return key
         from tidb_tpu_torch.sqltypes import collation_key
         return tuple(collation_key(x) if c and x is not None else x
                      for x, c in zip(key, self._ci))
 
     def update(self, res: GroupResult) -> None:
-        for gi, key in enumerate(res.keys):
-            gkey = self._group_key(key)
-            st = self._state.get(gkey)
+        keys = res.keys
+        gkeys = [self._group_key(k) for k in keys] if self._any_ci \
+            else keys
+        # each lane as a list of its elements (the same scalars indexing
+        # gives, without a per-element array index)
+        cols = [[list(lane) for lane in ls] for ls in res.partials]
+        state, orig = self._state, self._orig
+        fns = list(enumerate(a.fn for a in self.aggs))
+        for gi, gkey in enumerate(gkeys):
+            st = state.get(gkey)
             if st is None:
-                self._state[gkey] = [
-                    [lane[gi] for lane in res.partials[ai]]
-                    for ai in range(len(self.aggs))]
-                self._orig[gkey] = key
+                state[gkey] = [[lane[gi] for lane in c] for c in cols]
+                orig[gkey] = keys[gi]
                 continue
-            for ai, agg in enumerate(self.aggs):
-                lanes = res.partials[ai]
+            for ai, fn in fns:
+                lanes = cols[ai]
                 cur = st[ai]
-                fn = agg.fn
-                if fn == AggFunc.COUNT:
+                if fn == AggFunc.SUM:
                     cur[0] += lanes[0][gi]
-                elif fn in (AggFunc.SUM, AggFunc.AVG):
+                    has = lanes[1][gi]
+                    if has > cur[1]:        # max(cur[1], has)
+                        cur[1] = has
+                elif fn == AggFunc.COUNT:
                     cur[0] += lanes[0][gi]
-                    cur[1] = max(cur[1], lanes[1][gi]) if fn == AggFunc.SUM \
-                        else cur[1] + lanes[1][gi]
+                elif fn == AggFunc.AVG:
+                    cur[0] += lanes[0][gi]
+                    cur[1] = cur[1] + lanes[1][gi]
                 elif fn == AggFunc.MIN:
                     if lanes[1][gi] > 0:
                         cur[0] = min(cur[0], lanes[0][gi]) if cur[1] > 0 \
@@ -834,7 +883,8 @@ class HashAggregator:
                 elif fn == AggFunc.GROUP_CONCAT:
                     if lanes[1][gi] > 0:
                         if cur[1] > 0:
-                            cur[0] = cur[0] + agg.sep + lanes[0][gi]
+                            cur[0] = cur[0] + self.aggs[ai].sep + \
+                                lanes[0][gi]
                         else:
                             cur[0], cur[1] = lanes[0][gi], 1
 
@@ -842,36 +892,16 @@ class HashAggregator:
         """-> [(key, [final agg values])] with AVG finalized; SUM/AVG of
         decimals stay scaled ints (callers format via the agg result_ft)."""
         out = []
-        for key, st in sorted(self._state.items(),
-                              key=lambda kv: tuple(
-                                  (x is None, x) for x in kv[0])):
-            key = self._orig.get(key, key)
-            vals = []
-            for agg, cur in zip(self.aggs, st):
-                fn = agg.fn
-                if fn == AggFunc.COUNT:
-                    vals.append(int(cur[0]))
-                elif fn == AggFunc.SUM:
-                    vals.append(None if cur[1] == 0 else cur[0])
-                elif fn == AggFunc.AVG:
-                    if cur[1] == 0:
-                        vals.append(None)
-                    elif agg.result_ft.eval_type == EvalType.DECIMAL:
-                        # scaled-int avg in EXACT integer arithmetic
-                        # (half-up; float division corrupts wide decimals)
-                        extra = agg.result_ft.frac - agg.arg.ft.frac
-                        num = int(cur[0]) * (10 ** extra)
-                        den = int(cur[1])
-                        q, r = divmod(abs(num), den)
-                        if 2 * r >= den:
-                            q += 1
-                        vals.append(q if num >= 0 else -q)
-                    else:
-                        vals.append(float(cur[0]) / float(cur[1]))
-                elif fn in (AggFunc.MIN, AggFunc.MAX, AggFunc.FIRST_ROW,
-                            AggFunc.GROUP_CONCAT):
-                    vals.append(None if cur[1] == 0 else cur[0])
-                else:
-                    raise NotImplementedError(fn)
-            out.append((key, vals))
+        items = self._state.items()
+        if any(None in k for k in self._state):
+            items = sorted(items, key=lambda kv: tuple(
+                (x is None, x) for x in kv[0]))
+        else:
+            # no NULL key: (False, x) tuples order as the keys do
+            items = sorted(items, key=lambda kv: kv[0])
+        finals = [_finalizer(agg) for agg in self.aggs]
+        orig = self._orig
+        for key, st in items:
+            out.append((orig.get(key, key),
+                        [f(cur) for f, cur in zip(finals, st)]))
         return out

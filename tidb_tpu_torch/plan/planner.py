@@ -2,10 +2,11 @@
 
 The port's copy of the JAX package's plan/planner.py, with two cuts: no
 mesh pass (on one device the reference's route_mesh returns the plan
-unchanged; the multi-device plane is not ported), and the memtables
-over unported planes (the server's information_schema observability
-tables, the cluster_* fan-out) raise "not ported yet". The
-performance_schema memtables read perfschema.py.
+unchanged; the multi-device plane is not ported), and the cluster_*
+memtables, which fan out over the fleet's membership plane, raise "not
+ported yet". The information_schema observability memtables read
+memtrack, the meter, the trace ring, the profiler and perfschema's
+mode memo; the performance_schema memtables read perfschema.py.
 
 Reference: TiDB's plan/ — logical build (logical_plan_builder.go),
 rule-based optimization {columnPruner, ppdSolver, aggregationOptimizer,
@@ -199,13 +200,12 @@ class Planner:
     # -- INFORMATION_SCHEMA virtual tables (ref: infoschema/tables.go) -------
 
     _MEMTABLES = ("schemata", "tables", "columns", "statistics",
-                  "character_sets", "collations")
-    # the reference's memtables over the server's observability planes
-    # (perfschema, trace ring, meter, profiler, cluster membership)
-    _UNPORTED_MEMTABLES = ("memory_usage", "statement_traces",
-                           "resource_usage", "kernel_profile",
-                           "statement_profile", "cluster_members",
-                           "cluster_processlist", "cluster_resource_usage",
+                  "character_sets", "collations", "memory_usage",
+                  "statement_traces", "resource_usage",
+                  "kernel_profile", "statement_profile")
+    # the reference's memtables over the fleet's membership plane
+    _UNPORTED_MEMTABLES = ("cluster_members", "cluster_processlist",
+                           "cluster_resource_usage",
                            "cluster_statement_traces",
                            "cluster_kernel_profile")
 
@@ -290,6 +290,142 @@ class Planner:
             return mk([("character_set_name", sf),
                        ("default_collate_name", sf),
                        ("description", sf), ("maxlen", intf)], rows)
+        if name == "memory_usage":
+            # hierarchical memory trackers (memtrack.py): one row per
+            # live session (current + peak, host/device ledgers) plus
+            # the server-root totals every session rolls up into
+            from tidb_tpu_torch import memtrack
+            srv = memtrack.SERVER.snapshot()
+            rows = [("server", 0, srv["host"], srv["device"],
+                     srv["host_peak"], srv["device_peak"])]
+            for snap in memtrack.sessions_snapshot():
+                sid = snap["label"].rsplit("-", 1)[-1]
+                rows.append(("session",
+                             int(sid) if sid.isdigit() else 0,
+                             snap["host"], snap["device"],
+                             snap["host_peak"], snap["device_peak"]))
+            pv = mk([("scope", sf), ("session_id", intf),
+                     ("current_host_bytes", intf),
+                     ("current_device_bytes", intf),
+                     ("peak_host_bytes", intf),
+                     ("peak_device_bytes", intf)], rows)
+            # tracker state moves per statement with no schema-version
+            # bump: a cached plan would serve a frozen snapshot forever
+            pv.cacheable = False
+            return pv
+        if name == "resource_usage":
+            # the continuous resource meter (meter.py): cumulative AND
+            # current-interval work per tenant — device busy-time,
+            # host-fallback time, sched slot / admission waits, bytes
+            # dispatched, rows served — one row per user and per
+            # session (live or retained-closed), plus the SERVER total
+            # row the per-session sum reconciles against
+            from tidb_tpu_torch import meter
+            rows = []
+
+            def row(scope, snap):
+                iv = snap["interval"]
+                rows.append((scope, snap["session_id"],
+                             snap["user"] or None, snap["statements"],
+                             snap["device_ns"], iv["device_ns"],
+                             snap["host_fallback_ns"],
+                             snap["slot_wait_ns"],
+                             snap["admission_wait_ns"],
+                             snap["rows_sent"], snap["bytes_encoded"],
+                             snap["bytes_decoded_equiv"]))
+
+            row("server", meter.server_snapshot())
+            for snap in meter.users_snapshot():
+                row("user", snap)
+            for snap in meter.sessions_snapshot():
+                row("session", snap)
+            pv = mk([("scope", sf), ("session_id", intf), ("user", sf),
+                     ("statements", intf), ("device_time_ns", intf),
+                     ("device_time_interval_ns", intf),
+                     ("host_fallback_ns", intf),
+                     ("slot_wait_ns", intf),
+                     ("admission_wait_ns", intf),
+                     ("rows_sent", intf), ("bytes_encoded", intf),
+                     ("bytes_decoded_equiv", intf)], rows)
+            # meter state moves per statement with no schema-version
+            # bump: a cached plan would serve a frozen snapshot forever
+            pv.cacheable = False
+            return pv
+        if name == "statement_traces":
+            # retained statement span trees (trace.py ring): one row
+            # per trace, joinable to perfschema digests via `digest`
+            # (events_statements_summary_by_digest.last_trace_id points
+            # back here); the full tree serves on GET /trace/<id>
+            from tidb_tpu_torch import trace as _trace
+            rows = []
+            for r in _trace.ring_snapshot():
+                rows.append((r["trace_id"], r["digest"],
+                             r["sql"][:256], int(r["start_unix"] * 1e6),
+                             r["duration_ns"], r["span_count"],
+                             r["reason"], r["error"]))
+            pv = mk([("trace_id", intf), ("digest", sf),
+                     ("sql_text", new_string_field(256)),
+                     ("start_time_us", intf), ("duration_ns", intf),
+                     ("span_count", intf), ("reason", sf),
+                     ("error", sf)], rows)
+            # the ring moves per statement with no schema-version bump
+            pv.cacheable = False
+            return pv
+        if name == "kernel_profile":
+            # the kernel profiling plane (profiler.py): one row per
+            # (kernel family, plan fingerprint, mesh) — compile cost and
+            # cache attribution, dispatch/byte totals, and where the
+            # kernel sits against the platform's memory roofline
+            from tidb_tpu_torch import profiler
+            from tidb_tpu_torch.sqltypes import new_double_field
+            df = new_double_field()
+            rows = []
+            for p in profiler.snapshot():
+                rows.append((p["family"], p["fingerprint"], p["mesh"],
+                             p["generation"], p["compiles"],
+                             p["compile_ns"], p["compile_cache"],
+                             p["pcache_hits"], p["pcache_misses"],
+                             p["reuses"], p["dispatches"], p["busy_ns"],
+                             p["bytes_in"], p["bytes_out"],
+                             p["bytes_encoded"],
+                             p["bytes_decoded_equiv"],
+                             p["escalations"], p["fallbacks"],
+                             p["achieved_gbps"],
+                             p["roofline_fraction"]))
+            pv = mk([("family", sf), ("fingerprint", sf), ("mesh", sf),
+                     ("generation", intf), ("compiles", intf),
+                     ("compile_ns", intf), ("compile_cache", sf),
+                     ("pcache_hits", intf), ("pcache_misses", intf),
+                     ("reuses", intf), ("dispatches", intf),
+                     ("busy_ns", intf), ("bytes_in", intf),
+                     ("bytes_out", intf), ("bytes_encoded", intf),
+                     ("bytes_decoded_equiv", intf),
+                     ("escalations", intf), ("fallbacks", intf),
+                     ("achieved_gbps", df),
+                     ("roofline_fraction", df)], rows)
+            # profile rows move per dispatch with no schema-version
+            # bump: a cached plan would serve a frozen snapshot forever
+            pv.cacheable = False
+            return pv
+        if name == "statement_profile":
+            # the per-digest mode-history memo (perfschema.py): which
+            # execution mode each operator of each digest actually ran,
+            # with observed group cardinality and per-mode device time —
+            # the read side for feedback-driven mode selection
+            from tidb_tpu_torch import perfschema
+            rows = []
+            for r in perfschema.memo_snapshot():
+                rows.append((r["digest"], r["op"], r["mode"], r["runs"],
+                             r["device_ns"], r["rows"], r["last_mode"],
+                             r["last_groups"], r["max_groups"],
+                             int(r["last_seen"] * 1e6)))
+            pv = mk([("digest", sf), ("op", sf), ("mode", sf),
+                     ("runs", intf), ("device_ns", intf),
+                     ("rows", intf), ("last_mode", sf),
+                     ("last_groups", intf), ("max_groups", intf),
+                     ("last_seen_us", intf)], rows)
+            pv.cacheable = False
+            return pv
         if name == "collations":
             rows = [("utf8mb4_bin", "utf8mb4", 46, "", "Yes", 1),
                     ("utf8mb4_general_ci", "utf8mb4", 45, "Yes", "Yes", 1),

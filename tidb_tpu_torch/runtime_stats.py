@@ -1,28 +1,23 @@
 """Per-operator runtime statistics: the RuntimeStatsColl analogue.
 
-The port's copy of the JAX package's runtime_stats.py, the parts the
-coprocessor and the streaming handler call: a `StatsCollector` lives for
-one statement, `collecting()` installs it on a thread (the coprocessor
-re-installs it in every pool worker, like the sysvar overlay), and the
-`note_*` call sites record cop tasks, superchunks, fallbacks (also
-counted on `tidb_tpu_device_fallback_total{op,reason}`), encoding and
-execution modes, bytes touched (also the tenant meter's bytes ledger)
-and the kernel-profile feed (`note_kernel`, called from
-profiler.note_dispatch) against the issuing plan node.
+The port's copy of the JAX package's runtime_stats.py. A
+`StatsCollector` lives for one statement, `collecting()` installs it on
+a thread (the coprocessor re-installs it in every pool worker, like the
+sysvar overlay), and `instrument()` (called from the executor builder)
+wraps each operator's `chunks` / `partials` / `execute` so every batch
+it yields records rows, loops and host wall time against its plan node;
+the operator object and the reader's pushed CopPlans are linked to that
+node, so the `note_*` call sites (cop tasks, superchunks, pipeline
+stalls, fallbacks, also counted on
+`tidb_tpu_device_fallback_total{op,reason}`, encoding and execution
+modes, bytes touched, the kernel-profile feed) land on the same row.
 
 Device time is recorded only for a collector made with `device=True`
-(the reference builds it so under `tidb_tpu_runtime_stats_device`, a
-sysvar the port's session does not have: EXPLAIN ANALYZE, which reads
-it, is not ported):
-`device_section` records a CUDA event pair around the region and waits
-for the second (where the reference calls `jax.block_until_ready`), so
-timing serializes the reader with the card. `device_watermark` reads
-`torch.cuda.memory_stats`.
-
-Left out, with the executor tree, the session and the profiler that need
-them: `instrument` (wrapping an executor's methods) with the rows, loops
-and host time it records, `link`/`seal`/`suspended`, the pipeline-stall
-notes and the rendering helpers.
+(the session builds it so under `tidb_tpu_runtime_stats_device`):
+`device_call` and `device_section` record a CUDA event pair around the
+region and wait for the second (where the reference calls
+`jax.block_until_ready`), so timing serializes the reader with the
+card. `device_watermark` reads `torch.cuda.memory_stats`.
 """
 
 from __future__ import annotations
@@ -32,10 +27,11 @@ import threading
 import time
 
 __all__ = ["OpStats", "StatsCollector", "collecting", "current",
-           "device_section", "note_superchunk", "note_cop_tasks",
-           "note_fallback", "note_encoding", "note_bytes_touched",
-           "note_mode", "note_kernel", "device_watermark", "fmt_ns",
-           "fmt_bytes"]
+           "suspended", "instrument", "device_call", "device_section",
+           "note_superchunk", "note_cop_tasks", "note_pipeline_stall",
+           "note_finalize_wait", "note_fallback", "note_encoding",
+           "note_bytes_touched", "note_mode", "note_kernel",
+           "device_watermark", "fmt_ns", "fmt_bytes"]
 
 _tl = threading.local()
 
@@ -65,27 +61,29 @@ def device_watermark() -> int:
 
 
 class OpStats:
-    """One physical operator's actuals for one statement execution (the
-    counters the coprocessor path records; the reference's OpStats also
-    carries the executor wrappers' rows/loops/time, which the port does
-    not have yet)."""
+    """One physical operator's actuals for one statement execution."""
 
-    __slots__ = ("name", "device_time_ns", "cop_tasks", "superchunks",
-                 "coalesced_chunks", "superchunk_fill_rows",
-                 "superchunk_bucket_rows", "fallbacks", "fallback_reasons",
+    __slots__ = ("name", "act_rows", "loops", "time_ns", "device_time_ns",
+                 "cop_tasks", "superchunks", "coalesced_chunks",
+                 "superchunk_fill_rows", "superchunk_bucket_rows",
+                 "pipeline_stall_ns", "fallbacks", "fallback_reasons",
                  "encoding", "mode", "kernel_family", "kernel_compile",
                  "kernel_bytes", "kernel_busy_ns", "kernel_dispatches")
 
     def __init__(self, name: str):
         self.name = name
+        self.act_rows = 0
+        self.loops = 0
+        self.time_ns = 0           # host wall, inclusive of children
         self.device_time_ns = 0    # sum of CUDA event pairs
         self.cop_tasks = 0
         # superchunk accounting: how the operator's device work was
-        # batched
+        # batched and how long the host sat blocked on readback
         self.superchunks = 0            # coalesced device dispatches
         self.coalesced_chunks = 0       # source chunks folded into them
         self.superchunk_fill_rows = 0   # live rows across superchunks
         self.superchunk_bucket_rows = 0  # padded bucket rows (>= fill)
+        self.pipeline_stall_ns = 0      # host blocked in finalize
         # device->host fallbacks: batches this operator planned for the
         # device but executed on the host (capacity/collision miss that
         # survived the partition retry, or a non-device-safe plan)
@@ -95,7 +93,7 @@ class OpStats:
         # noted, else one of encoded | decoded | direct-agg
         self.encoding = ""
         # execution mode that actually ran: "" = nothing noted, else one
-        # of direct | hash | hybrid | host
+        # of direct | hash | sort | fused | hybrid | host
         self.mode = ""
         # kernel-profile feed (profiler.py): which kernel family served
         # this operator, its first-dispatch attribution, and the bytes,
@@ -105,6 +103,25 @@ class OpStats:
         self.kernel_bytes = 0
         self.kernel_busy_ns = 0
         self.kernel_dispatches = 0
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "act_rows": self.act_rows,
+                "loops": self.loops, "time_ns": self.time_ns,
+                "device_time_ns": self.device_time_ns,
+                "cop_tasks": self.cop_tasks,
+                "superchunks": self.superchunks,
+                "coalesced_chunks": self.coalesced_chunks,
+                "superchunk_fill_rows": self.superchunk_fill_rows,
+                "superchunk_bucket_rows": self.superchunk_bucket_rows,
+                "pipeline_stall_ns": self.pipeline_stall_ns,
+                "fallbacks": self.fallbacks,
+                "encoding": self.encoding,
+                "kernel_family": self.kernel_family,
+                "kernel_compile": self.kernel_compile,
+                "kernel_bytes": self.kernel_bytes,
+                "kernel_busy_ns": self.kernel_busy_ns,
+                "kernel_dispatches": self.kernel_dispatches,
+                "mode": self.mode}
 
     def fill_ratio(self) -> float:
         """Live rows over padded bucket rows (0.0 when no superchunks)."""
@@ -137,14 +154,43 @@ class StatsCollector:
             self._nodes.setdefault(id(plan), (plan, st))
         return self._nodes[id(plan)][1]
 
+    def link(self, alias, stats: OpStats) -> None:
+        """Route records against `alias` (an operator object, a reader's
+        CopPlan) onto `stats`."""
+        with self._lock:
+            self._nodes[id(alias)] = (alias, stats)
+
     def get(self, plan) -> OpStats | None:
         ent = self._nodes.get(id(plan))
         return ent[1] if ent is not None else None
 
     def ops(self) -> list[OpStats]:
-        """The OpStats of every plan node noted, insertion order."""
+        """Distinct OpStats (aliases deduped), insertion order."""
+        sealed = getattr(self, "_sealed_ops", None)
+        if sealed is not None:
+            return list(sealed)
         with self._lock:
-            return [st for _plan, st in self._nodes.values()]
+            ents = list(self._nodes.values())
+        seen: list[OpStats] = []
+        for _plan, st in ents:
+            if all(st is not s for s in seen):
+                seen.append(st)
+        return seen
+
+    def seal(self) -> None:
+        """Drop the plan and operator references once the statement is
+        done: the collector outlives the statement on the session, and it
+        must not pin the executed tree. ops() answers from the sealed
+        snapshot."""
+        ops = self.ops()
+        with self._lock:
+            self._sealed_ops = ops
+            self._nodes = {}
+
+    def note_pipeline_stall(self, plan, ns: int) -> None:
+        st = self.node(plan)
+        with self._lock:
+            st.pipeline_stall_ns += ns
 
     def note_device(self, plan, elapsed_ns: int) -> None:
         st = self.node(plan)
@@ -220,6 +266,111 @@ def collecting(coll: StatsCollector | None):
 
 def current() -> StatsCollector | None:
     return getattr(_tl, "coll", None)
+
+
+@contextlib.contextmanager
+def suspended():
+    """Hide the active collector (internal sessions run inside a client
+    statement but must not record into its operator stats: the stats
+    twin of trace.detach())."""
+    prev = getattr(_tl, "coll", None)
+    _tl.coll = None
+    try:
+        yield
+    finally:
+        _tl.coll = prev
+
+
+def note_pipeline_stall(plan, ns: int) -> None:
+    coll = getattr(_tl, "coll", None)
+    if coll is not None:
+        coll.note_pipeline_stall(plan, ns)
+
+
+def note_finalize_wait(plan, ns: int) -> None:
+    """Blocked-readback time at a pipeline's output boundary: always
+    recorded as pipeline stall; with device timing on it doubles as the
+    operator's device time (under dispatch overlap the wait where the
+    host needed the result is the honest number)."""
+    coll = getattr(_tl, "coll", None)
+    if coll is None:
+        return
+    coll.note_pipeline_stall(plan, ns)
+    if coll.device:
+        coll.note_device(plan, ns)
+
+
+# -- operator instrumentation (wired from executor/builder.py) -------------
+
+_COP_ATTRS = ("cop", "index_cop", "table_cop")
+
+
+def instrument(op, plan) -> None:
+    """Wrap operator `op`'s production methods so each batch it yields
+    records rows, loops and host time into the active collector's node
+    for `plan`; the operator object and the plan's pushed CopPlans are
+    linked to that node (and to the plan's memtrack node), so records
+    made against them land on the plan's row. No-op when neither a
+    collector nor a tracker is active."""
+    from tidb_tpu_torch import memtrack
+    mt = memtrack.current()
+    if mt is not None:
+        mnode = mt.node(plan)
+        mt.link(op, mnode)
+        for attr in _COP_ATTRS:
+            cop = getattr(plan, attr, None)
+            if cop is not None:
+                mt.link(cop, mnode)
+    coll = current()
+    if coll is None:
+        return
+    st = coll.node(plan)
+    coll.link(op, st)
+    for attr in _COP_ATTRS:
+        cop = getattr(plan, attr, None)
+        if cop is not None:
+            coll.link(cop, st)
+    for meth in ("chunks", "partials"):
+        if hasattr(op, meth):
+            setattr(op, meth, _wrap_iter(getattr(op, meth), st))
+    if hasattr(op, "execute"):
+        inner_exec = op.execute
+
+        def execute(ctx):
+            t0 = time.perf_counter_ns()
+            try:
+                n = inner_exec(ctx)
+            finally:
+                st.time_ns += time.perf_counter_ns() - t0
+            st.loops += 1
+            if isinstance(n, int):
+                st.act_rows += n
+            return n
+
+        op.execute = execute
+
+
+def _wrap_iter(fn, st: OpStats):
+    def produce(ctx):
+        it = fn(ctx)
+        while True:
+            t0 = time.perf_counter_ns()
+            try:
+                out = next(it)
+            except StopIteration:
+                st.time_ns += time.perf_counter_ns() - t0
+                return
+            st.time_ns += time.perf_counter_ns() - t0
+            st.loops += 1
+            n = getattr(out, "num_rows", None)
+            if n is None:
+                # agg-pushdown readers yield GroupResult partials: count
+                # the groups they carry
+                n = len(getattr(out, "keys", ()) or ())
+            st.act_rows += n
+            yield out
+
+    return produce
 
 
 def note_cop_tasks(plan, n: int) -> None:
@@ -324,6 +475,21 @@ def _events():
           torch.cuda.Event(enable_timing=True))
     ev[0].record()
     return ev
+
+
+def device_call(plan, fn, *args, device=None):
+    """Run a synchronous device kernel call, attributing its time to
+    `plan`'s stats when device timing is on (a CUDA event pair on the
+    card, the host clock elsewhere). With timing off (or no collector)
+    this is one attribute read and one call."""
+    coll = getattr(_tl, "coll", None)
+    if coll is None or not coll.device:
+        return fn(*args)
+    t0 = time.perf_counter_ns()
+    ev = _events() if _cuda(device) else None
+    out = fn(*args)
+    coll.note_device(plan, _device_ns(t0, ev))
+    return out
 
 
 @contextlib.contextmanager

@@ -1,16 +1,17 @@
 """HTTP status server: the port of the JAX package's server/status.py.
 
 /status, /metrics (Prometheus text), /metrics/history, /profile,
-/failpoint (GET lists, POST arms), /top, /shed and the region/MVCC debug
-API. Ref: server/http_status.go (the :10080 admin API) and
+/failpoint (GET lists, POST arms), /top, /shed, the trace ring (/trace
+lists the retained traces, /trace/<id> serves one span tree,
+/trace/<id>/chrome its Chrome trace-event JSON) and the region/MVCC
+debug API. Ref: server/http_status.go (the :10080 admin API) and
 server/region_handler.go:73-91 (table regions, MVCC forensics by key and
 by start_ts).
 
-The reference's fleet and trace routes (/cluster/state, /fleet/*,
-/trace/*) read the membership registry and the trace ring, which are not
-ported: they answer 404, as any unknown path does. /metrics carries no
-member identity stamp, and /status and /profile no XLA compile-cache
-counters."""
+The reference's fleet routes (/cluster/state, /fleet/*, /fleet/trace)
+read the membership registry, which is not ported: they answer 404, as
+any unknown path does. /metrics carries no member identity stamp, and
+/status and /profile no XLA compile-cache counters."""
 
 from __future__ import annotations
 
@@ -139,6 +140,31 @@ class _Handler(BaseHTTPRequestHandler):
                 from tidb_tpu_torch.util import failpoint
                 self._json({"registry": failpoint.REGISTRY,
                             "armed": failpoint.armed()})
+                return
+            if parts and parts[0] == "trace":
+                # retained statement traces (trace.py ring):
+                # /trace lists summaries, /trace/<id> serves the full
+                # span tree, /trace/<id>/chrome the trace-event JSON
+                # for Perfetto / chrome://tracing
+                from tidb_tpu_torch import trace
+                if len(parts) == 1:
+                    self._json({"ring": trace.ring_stats(),
+                                "traces": trace.ring_snapshot()})
+                    return
+                rec = trace.ring_get(int(parts[1]))
+                if rec is None:
+                    self._json({"error": f"no trace {parts[1]} "
+                                         f"(evicted or never retained)"},
+                               404)
+                    return
+                if len(parts) == 3 and parts[2] == "chrome":
+                    self._json(trace.to_chrome(rec))
+                    return
+                self._json({"trace_id": rec["trace_id"],
+                            "sql": rec["sql"], "digest": rec["digest"],
+                            "duration_ns": rec["duration_ns"],
+                            "reason": rec["reason"],
+                            "spans": trace.tree(rec["root"])})
                 return
             if self.path.startswith("/metrics/history"):
                 # the in-process time-series ring (metrics_history.py):

@@ -14,12 +14,15 @@ CREATE/DROP INDEX, ALTER TABLE: an open transaction commits first), USE,
 SET (session and GLOBAL sysvars, user variables, `autocommit`; SET
 GLOBAL persists into mysql.global_variables once the catalog exists),
 BEGIN/COMMIT/ROLLBACK, INSERT, UPDATE and DELETE (single- and
-multi-table), SELECT (with FOR UPDATE), EXPLAIN (without ANALYZE),
-ANALYZE TABLE, SHOW, PREPARE/EXECUTE/DEALLOCATE (and the `prepare` /
+multi-table), LOAD DATA INFILE (executor/loaddata.py, the native
+scanner), SELECT (with FOR UPDATE, subqueries and UNION), EXPLAIN and
+EXPLAIN ANALYZE (the plan annotated with each operator's actuals from
+the runtime-stats collector), TRACE [FORMAT='row'|'json'], ANALYZE
+TABLE, SPLIT TABLE, ADMIN (SHOW DDL, SHOW DDL JOBS, CANCEL DDL JOBS,
+CHECK TABLE), SHOW, PREPARE/EXECUTE/DEALLOCATE (and the `prepare` /
 `execute_prepared` API the binary protocol drives), KILL
 [QUERY|CONNECTION], DO, `@v := expr`, FLUSH, DROP STATS, CREATE USER /
-DROP USER / GRANT / REVOKE / SET PASSWORD. TRACE, EXPLAIN ANALYZE, LOAD
-DATA, SPLIT TABLE and ADMIN raise SQLError naming them as not ported yet.
+DROP USER / GRANT / REVOKE / SET PASSWORD.
 
 Privileges (ref: privilege/privileges/privileges.go:56
 RequestVerification): once the `mysql` catalog exists (bootstrap.py), a
@@ -55,8 +58,13 @@ session) and `last_phases` the parse/plan/execute/format wall times in
 ns. A single-statement SELECT's plan is cached in `Domain.plan_cache`
 under its text, database, schema version and stats version; a prepared
 statement binds its markers as constants and re-plans per execution, as
-the reference does. The trace ring is not ported: the digest summary's
-`last_trace_id` stays 0.
+the reference does. A statement's trace root is sampled at begin
+(`tidb_tpu_trace_sample`), forced by TRACE, or kept when it runs past
+`tidb_tpu_slow_trace_ms`; a retained tree enters the trace ring
+(trace.py) and its id reaches the digest summary's `last_trace_id` and
+the slow log. The runtime-stats collector (`tidb_tpu_runtime_stats`,
+device times under `tidb_tpu_runtime_stats_device`) gives the digests
+and the slow log their operator rows and wall times.
 """
 
 from __future__ import annotations
@@ -71,10 +79,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from tidb_tpu_torch import (config, errcode, kv, memtrack, meter, metrics,
-                            perfschema, sched, trace)
+                            perfschema, sched, tablecodec, trace)
 from tidb_tpu_torch import runtime_stats as rs
 from tidb_tpu_torch.ddl import DDLError, DDLExecutor
-from tidb_tpu_torch.errcode import not_ported
 from tidb_tpu_torch.executor import (ExecContext, ExecError, ExecStats,
                                      build_executor)
 from tidb_tpu_torch.meta import Meta
@@ -606,7 +613,8 @@ class Session:
         if self.internal:
             token = trace.detach()
             try:
-                with memtrack.suspended(), meter.suspended():
+                with rs.suspended(), memtrack.suspended(), \
+                        meter.suspended():
                     return self._run_stmt(stmt, sql_text=sql_text)
             finally:
                 trace.restore(token)
@@ -621,7 +629,16 @@ class Session:
                    if config.is_known(k)}
         kind = type(stmt).__name__.removesuffix("Stmt").lower()
         ev = perfschema.stmt_begin(self.session_id, sql)
-        root = trace.begin("statement", type=kind)
+        # the sampling decision happens at begin: under the overlay, so
+        # a session-scope SET tidb_tpu_trace_sample is honored
+        if overlay:
+            with config.session_overlay(overlay):
+                root = trace.begin("statement", type=kind)
+        else:
+            root = trace.begin("statement", type=kind)
+        if isinstance(stmt, ast.TraceStmt):
+            # TRACE forces retention; _exec_trace reads the live tree
+            root.forced = True
         # parse happened batch-wide before dispatch: record this
         # statement's share as a pre-closed phase span, and back-date the
         # root so its duration covers it
@@ -654,10 +671,16 @@ class Session:
         res = None
         err: str | None = None
         slow_ms = config.slow_query_ms()
+        trace_on = slow_trace = None
+        self._last_plan = None
         try:
             with config.session_overlay(overlay), meter.metering(sm):
                 mt.quota = config.mem_quota_query()   # session-shadowed
+                # the session-shadowed slow-log and trace knobs, read
+                # while the overlay is installed
                 slow_ms = config.slow_query_ms()
+                trace_on = config.trace_log()
+                slow_trace = config.slow_trace_ms()
                 try:
                     if _needs_admission(stmt):
                         with trace.span("admission"):
@@ -698,18 +721,23 @@ class Session:
                 (res if isinstance(res, int) else 0)
             perfschema.stmt_end(ev, root=root, rows=nrows, error=err)
             coll = self.last_collector
-            ops = [_op_dict(o) for o in coll.ops()] \
+            ops = [o.to_dict() for o in coll.ops()] \
                 if coll is not None else []
             phases = {"parse": trace.phase_ns(root, "parse"),
                       "plan": trace.phase_ns(root, "plan"),
                       "exec": trace.phase_ns(root, "execute"),
                       "commit": trace.phase_ns(root, "commit")}
+            # sampled, slow and TRACE-forced trees retain into the trace
+            # ring; the id links the digest summary and the slow log to
+            # the timeline
+            trace_id = trace.finish_statement(root, sql, error=err,
+                                              slow_ms=slow_trace)
             digest, norm = perfschema.digest_record(
                 sql, int(dur * 1e9), phases=phases, rows=nrows,
                 error=err, op_stats=ops,
                 mem_bytes=mt.host_peak + mt.device_peak,
                 tag=None if batch_no is None
-                else f"stmt#{batch_no}:{kind}")
+                else f"stmt#{batch_no}:{kind}", trace_id=trace_id)
             if config.kernel_profile():
                 perfschema.memo_record(digest, [o for o in ops
                                                 if o["mode"]])
@@ -717,6 +745,11 @@ class Session:
             meter.finish_statement(sm, digest, norm)
             if coll is not None:
                 for o in coll.ops():
+                    if o.loops:
+                        metrics.histogram(metrics.OP_DURATIONS,
+                                          o.time_ns / 1e9, {"op": o.name})
+                        metrics.counter(metrics.OP_ROWS, {"op": o.name},
+                                        inc=o.act_rows)
                     if o.device_time_ns:
                         metrics.histogram(metrics.OP_DEVICE_DURATIONS,
                                           o.device_time_ns / 1e9,
@@ -724,10 +757,17 @@ class Session:
                     if o.superchunks:
                         metrics.counter(metrics.SUPERCHUNKS, {"op": o.name},
                                         inc=o.superchunks)
+            if trace_on:
+                trace.log_tree(root, sql)
             if dur * 1000 >= slow_ms:
                 metrics.counter(metrics.SLOW_QUERIES)
                 slow_log.warning("%s", self._slow_log_record(
-                    sql, dur, digest, ops, err, mt))
+                    sql, dur, digest, ops, err, mt, trace_id=trace_id))
+            # the collector outlives the statement on the session: it
+            # must not pin the executed plan and operator trees
+            self._last_plan = None
+            if coll is not None:
+                coll.seal()
             # release-on-close: credit everything still held back to the
             # session root; the peaks stay readable on last_mem
             self.last_mem_left = mt.total()
@@ -743,21 +783,39 @@ class Session:
         return res
 
     def _slow_log_record(self, sql: str, dur: float, digest: str,
-                         ops: list, err: str | None, mem) -> str:
-        """Structured slow-log record: digest, memory peaks and the
-        operators' device time ride with the SQL (ref: the multi-line
-        slow log, executor/adapter.go:353)."""
+                         ops: list, err: str | None, mem,
+                         trace_id: int | None = None) -> str:
+        """Structured slow-log record: digest, the retained trace's id,
+        memory peaks and the operators' rows, loops and times ride with
+        the SQL (ref: the multi-line slow log, executor/adapter.go:353)."""
         lines = [f"slow query: {dur:.3f}s user={self.user} "
                  f"db={self.current_db} digest={digest}"
-                 + (" error=1" if err else ""),
-                 f"# Mem: {rs.fmt_bytes(mem.host_peak + mem.device_peak)}"
-                 f" host={rs.fmt_bytes(mem.host_peak)}"
-                 f" device={rs.fmt_bytes(mem.device_peak)}"]
+                 + (" error=1" if err else "")]
+        if trace_id is not None:
+            lines.append(f"# Trace_id: {trace_id}")
+        lines.append(
+            f"# Mem: {rs.fmt_bytes(mem.host_peak + mem.device_peak)}"
+            f" host={rs.fmt_bytes(mem.host_peak)}"
+            f" device={rs.fmt_bytes(mem.device_peak)}")
+        plan = self._last_plan
+        if plan is not None:
+            try:
+                for ln in plan.explain().split("\n"):
+                    lines.append("# Plan: " + ln)
+            except Exception:  # noqa: BLE001 - logging must not fail stmts
+                pass
         for o in ops:
-            if o["device_time_ns"] or o["mode"]:
-                lines.append(f"# Op: {o['name']} mode={o['mode'] or '-'} "
-                             f"device_time="
-                             f"{rs.fmt_ns(o['device_time_ns'])}")
+            if not o["loops"] and not o["time_ns"]:
+                continue
+            ln = (f"# Op: {o['name']} act_rows={o['act_rows']} "
+                  f"loops={o['loops']} time={rs.fmt_ns(o['time_ns'])}")
+            if o["device_time_ns"]:
+                ln += f" device_time={rs.fmt_ns(o['device_time_ns'])}"
+            if o["cop_tasks"]:
+                ln += f" cop_tasks={o['cop_tasks']}"
+            if o["mode"]:
+                ln += f" mode={o['mode']}"
+            lines.append(ln)
         lines.append("# SQL: " + sql[:2048])
         return "\n".join(lines)
 
@@ -837,7 +895,7 @@ class Session:
                              ast.GrantStmt, ast.RevokeStmt,
                              ast.SetPasswordStmt)):
             return self._exec_account(stmt)
-        if isinstance(stmt, ast.SelectStmt):
+        if isinstance(stmt, (ast.SelectStmt, ast.UnionStmt)):
             stmt, folded = self._fold_session_exprs(stmt)
             return self._exec_query(
                 stmt, sql_text=None if folded else sql_text)
@@ -859,9 +917,13 @@ class Session:
             self.deallocate_prepared(stmt.name)
             return None
         if isinstance(stmt, (ast.InsertStmt, ast.UpdateStmt,
-                             ast.DeleteStmt)):
+                             ast.DeleteStmt, ast.LoadDataStmt)):
             stmt, _ = self._fold_session_exprs(stmt)
             return self._exec_dml(stmt)
+        if isinstance(stmt, ast.SplitTableStmt):
+            return self._exec_split_table(stmt)
+        if isinstance(stmt, ast.TraceStmt):
+            return self._exec_trace(stmt)
         if isinstance(stmt, ast.KillStmt):
             return self._exec_kill(stmt)
         if isinstance(stmt, ast.DoStmt):
@@ -935,13 +997,131 @@ class Session:
         if isinstance(stmt, ast.ShowStmt):
             return self._exec_show(stmt)
         if isinstance(stmt, ast.ExplainStmt):
-            if stmt.analyze:
-                raise SQLError(not_ported("EXPLAIN ANALYZE"))
             return self._exec_explain(stmt)
         if isinstance(stmt, ast.AnalyzeStmt):
             return self._exec_analyze(stmt)
-        raise SQLError(not_ported(
-            f"the {type(stmt).__name__.removesuffix('Stmt')} statement"))
+        if isinstance(stmt, ast.AdminStmt):
+            return self._exec_admin(stmt)
+        raise SQLError(f"unsupported statement {type(stmt).__name__}")
+
+    # -- ADMIN (ref: util/admin/admin.go:42 GetDDLInfo, :231
+    # CheckRecordAndIndex / CheckIndicesCount) -------------------------------
+
+    def _exec_admin(self, stmt: ast.AdminStmt) -> ResultSet:
+        if stmt.tp == "show_ddl":
+            txn = self.storage.begin()
+            try:
+                m = Meta(txn)
+                ver = m.schema_version()
+            finally:
+                txn.rollback()
+            return ResultSet(["SCHEMA_VER", "OWNER", "SELF_ID"],
+                             [(ver, "self", "self")])
+        if stmt.tp == "show_ddl_jobs":
+            # queue front-to-back, then recent history (ref: the ADMIN
+            # SHOW DDL JOBS surface over meta's job queue/history)
+            from tidb_tpu_torch.ddl.job import Job
+            txn = self.storage.begin()
+            try:
+                m = Meta(txn)
+                rows = []
+                for raw in m.t.litems(Meta.JOB_LIST_KEY):
+                    j = Job.loads(raw)
+                    rows.append((j.id, j.tp.value, j.schema_id,
+                                 j.table_id, j.state.value,
+                                 int(j.schema_state), "queue"))
+                hist = m.t.hgetall(Meta.JOB_HISTORY_KEY)
+                for _f, raw in sorted(hist, reverse=True)[:16]:
+                    j = Job.loads(raw)
+                    rows.append((j.id, j.tp.value, j.schema_id,
+                                 j.table_id, j.state.value,
+                                 int(j.schema_state), "history"))
+            finally:
+                txn.rollback()
+            return ResultSet(["JOB_ID", "JOB_TYPE", "SCHEMA_ID",
+                              "TABLE_ID", "STATE", "SCHEMA_STATE",
+                              "SOURCE"], rows)
+        if stmt.tp == "cancel_ddl_jobs":
+            # flip still-QUEUEING jobs to CANCELLED in the meta queue
+            # (ref: admin.CancelJobs — running jobs can't be cancelled
+            # here; the single transition already commits atomically)
+            from tidb_tpu_torch.ddl.job import Job, JobState
+            rows = []
+            txn = self.storage.begin()
+            try:
+                m = Meta(txn)
+                items = list(m.t.litems(Meta.JOB_LIST_KEY))
+                for jid in stmt.job_ids:
+                    found = False
+                    for pos, raw in enumerate(items):
+                        j = Job.loads(raw)
+                        if j.id != jid:
+                            continue
+                        found = True
+                        if j.state == JobState.QUEUEING:
+                            j.state = JobState.CANCELLED
+                            m.t.lset(Meta.JOB_LIST_KEY, pos, j.dumps())
+                            rows.append((jid, "cancelled"))
+                        else:
+                            rows.append((jid, f"cannot cancel: "
+                                              f"{j.state.value}"))
+                        break
+                    if not found:
+                        rows.append((jid, "not found"))
+                txn.commit()
+            except Exception:
+                txn.rollback()
+                raise
+            return ResultSet(["JOB_ID", "RESULT"], rows)
+        if stmt.tp != "check_table":
+            return ResultSet(columns=["info"], rows=[])
+        from tidb_tpu_torch import codec as _codec
+        from tidb_tpu_torch.schema.model import SchemaState
+        snap = self.storage.snapshot(self.storage.current_ts())
+        for ts in stmt.tables:
+            info = self._resolve_table(ts)
+            lo, hi = tablecodec.table_prefix_range(info.id)
+            rp = tablecodec.record_prefix(info.id)
+            rows: dict[int, dict] = {}            # handle -> {col_id: datum}
+            actual: dict[int, set] = {}           # idx_id -> {(key, value)}
+            for k, v in snap.iter_range(lo, hi):
+                if k.startswith(rp):
+                    h = tablecodec.decode_record_key(k)[1]
+                    rows[h] = tablecodec.decode_row(v)
+                    continue
+                try:
+                    _tid, iid, _suffix = tablecodec.decode_index_key(k)
+                except ValueError:
+                    continue
+                actual.setdefault(iid, set()).add((k, v))
+            for idx in info.indexes:
+                if idx.state != SchemaState.PUBLIC:
+                    continue
+                # expected entries recomputed from the ROW VALUES, so
+                # stale-value index corruption is caught, not just
+                # count/handle drift (ref: admin.go CheckRecordAndIndex)
+                expect: set = set()
+                col_ids = [info.col_by_name(c).id for c in idx.columns]
+                for h, rowvals in rows.items():
+                    vals = [rowvals.get(cid) for cid in col_ids]
+                    if idx.unique and all(x is not None for x in vals):
+                        expect.add((
+                            tablecodec.index_key(info.id, idx.id, vals),
+                            _codec.encode_int(h)))
+                    else:
+                        expect.add((
+                            tablecodec.index_key(info.id, idx.id, vals,
+                                                 handle=h), b"0"))
+                got = actual.get(idx.id, set())
+                if got != expect:
+                    missing = len(expect - got)
+                    extra = len(got - expect)
+                    raise SQLError(
+                        f"admin check table {info.name} index "
+                        f"{idx.name}: {missing} missing and {extra} "
+                        f"unexpected index entries")
+        return ResultSet(columns=["info"],
+                         rows=[("check passed",)])
 
     # -- privileges (ref: privilege/privileges/privileges.go:56
     # RequestVerification, wired at plan time via visitInfo in the
@@ -1229,6 +1409,20 @@ class Session:
                            read_ts=read_ts, txn=txn,
                            interrupted=lambda: self.killed)
 
+    def _stats_collector(self):
+        """The statement's runtime-stats collector: EXPLAIN ANALYZE's
+        when it installed one, else a fresh one (timing the device under
+        tidb_tpu_runtime_stats_device); None with tidb_tpu_runtime_stats
+        = 0 or for an internal session."""
+        if self.internal:
+            return None
+        active = rs.current()
+        if active is not None:
+            return active
+        if not config.runtime_stats_enabled():
+            return None
+        return rs.StatsCollector(device=config.runtime_stats_device())
+
     def _exec_query(self, stmt, sql_text: str | None = None) -> ResultSet:
         if getattr(stmt, "for_update", False) and self.txn is None and \
                 not self.autocommit:
@@ -1249,7 +1443,8 @@ class Session:
             if cache_key is not None and _plan_cacheable(plan):
                 self.domain.plan_cache().put(cache_key, plan)
         ctx = self._context(self._read_ts(), self.txn)
-        coll = rs.StatsCollector()
+        coll = self._stats_collector()
+        self._last_plan = plan
         launches = segsum.launches
         try:
             with rs.collecting(coll):
@@ -1311,6 +1506,9 @@ class Session:
 
     def _exec_dml_in_txn(self, stmt) -> int:
         from tidb_tpu_torch.plan import physical as ph
+        if isinstance(stmt, ast.LoadDataStmt):
+            with trace.span("execute", executor="LoadData"):
+                return self._load_data_in_txn(stmt)
         plan = self._plan(stmt)
         if isinstance(plan, (ph.PhysInsert, ph.PhysUpdate, ph.PhysDelete)):
             # schema validation scope: the tables this txn WRITES
@@ -1319,7 +1517,8 @@ class Session:
             for target in plan.targets:
                 self.txn.related_tables.add(target[0].id)
         ctx = self._context(self.txn.start_ts, self.txn)
-        coll = rs.StatsCollector()
+        coll = self._stats_collector()
+        self._last_plan = plan
         launches = segsum.launches
         try:
             with rs.collecting(coll):
@@ -1361,7 +1560,6 @@ class Session:
         matches (ref: executor/executor.go:389 SelectLockExec; keys
         buffered in the txn, conflict-checked at commit), even under
         LIMIT, through a second scan of the filter."""
-        from tidb_tpu_torch import tablecodec
         src = stmt.from_clause
         if src is None:
             return                # SELECT 1 FOR UPDATE: nothing to lock
@@ -1476,6 +1674,13 @@ class Session:
                         f"invalid value for @@{a.name}: {val!r}") from None
                 if is_global:
                     config.set_var(a.name, val)
+                elif config.is_global_only(a.name):
+                    # a session-scope write would shadow the value on
+                    # this thread while its side effect (failpoint
+                    # arming) never fires
+                    raise SQLError(
+                        f"Variable '{a.name}' is a GLOBAL variable "
+                        f"and should be set with SET GLOBAL")
             if is_global:
                 # GLOBAL never touches the session scope (MySQL)
                 self._persist_global_var(a.name.lower(), val)
@@ -1538,6 +1743,107 @@ class Session:
                        for i, v in idx)]
         return ResultSet(rs.columns, rows)
 
+
+    # -- LOAD DATA (ref: executor/write.go:1373 LoadDataExec) ----------------
+
+    def _load_data_in_txn(self, stmt: ast.LoadDataStmt) -> int:
+        from tidb_tpu_torch.executor.loaddata import (RowsInsert,
+                                                      convert_fields,
+                                                      parse_lines,
+                                                      read_text_chunks)
+        info = self._resolve_table_or_err(stmt.table)
+        col_names = [c.lower() for c in stmt.columns] \
+            or [c.name.lower() for c in info.public_columns()]
+        cols = [info.col_by_name(c) for c in col_names]
+        try:
+            f = open(stmt.path, "r", encoding="utf-8", newline="")
+        except OSError as e:
+            raise SQLError(f"Can't get stat of '{stmt.path}': {e}") from None
+        with f:
+            self.txn.related_tables.add(info.id)
+            ctx = self._context(self.txn.start_ts, self.txn)
+
+            def rows():
+                for i, fields in enumerate(
+                        parse_lines(read_text_chunks(f), stmt)):
+                    if i % 1024 == 0:
+                        ctx.check_interrupt()
+                    yield convert_fields(info, col_names, fields, cols)
+
+            return RowsInsert(info, rows(), stmt.dup_mode).execute(ctx)
+
+    # -- TRACE (ref: the reference's TRACE statement rendering its
+    # per-statement span tree, executor/trace.go) ----------------------------
+
+    def _exec_trace(self, stmt: ast.TraceStmt) -> ResultSet:
+        """Execute the inner statement under THIS statement's (forced)
+        trace root — admission, scheduler-slot, dispatch/finalize and
+        worker spans all land on one tree — then render that tree: row
+        form is the operator-facing indented table, json form one
+        document (also retained in the ring under the returned
+        trace_id, so GET /trace/<id> serves the same tree)."""
+        inner = stmt.stmt
+        if isinstance(inner, ast.TraceStmt):
+            raise SQLError("TRACE statements cannot nest")
+        self._run_stmt(inner)    # result discarded: the tree IS the output
+        root = trace.current_root()
+        if root is None:
+            raise SQLError("TRACE: no statement trace is active")
+        tid = trace.ensure_id(root)
+        snap = trace.tree(root)
+        if stmt.format == "json":
+            import json as _json
+            return ResultSet(
+                ["trace"],
+                [(_json.dumps({"trace_id": tid, "spans": snap}),)])
+        rows: list[tuple] = []
+
+        def walk(d: dict, depth: int) -> None:
+            op = "  " * depth + d["name"]
+            tags = d.get("tags")
+            if tags:
+                op += " " + " ".join(f"{k}={v}" for k, v in
+                                     sorted(tags.items()))
+            rows.append((op, f"{d['start_us'] / 1e3:.3f}ms",
+                         f"{d['duration_us'] / 1e3:.3f}ms"))
+            for ev in d.get("events", ()):
+                rows.append(("  " * (depth + 1) + "! " + ev["name"],
+                             f"{ev['at_us'] / 1e3:.3f}ms", "-"))
+            for c in d.get("children", ()):
+                walk(c, depth + 1)
+
+        walk(snap, 0)
+        return ResultSet(["operation", "start", "duration"], rows)
+
+    # -- SPLIT TABLE (ref: store/tikv/split_region.go:29; mocktikv
+    # cluster.go:276 Split/SplitTable) ---------------------------------------
+
+    def _exec_split_table(self, stmt: ast.SplitTableStmt) -> ResultSet:
+        info = self._resolve_table_or_err(stmt.table)
+        cluster = getattr(self.storage, "cluster", None)
+        if cluster is None:
+            raise SQLError("storage does not support region split")
+        if stmt.regions:
+            done = cluster.split_table(info.id, stmt.regions)
+        else:
+            done = 0
+            for e in stmt.at_values:
+                if not isinstance(e, ast.Literal) or \
+                        not isinstance(e.value, int):
+                    raise SQLError("SPLIT TABLE AT takes integer literals")
+                try:
+                    cluster.split(
+                        tablecodec.record_key(info.id, int(e.value)))
+                    done += 1
+                except ValueError:   # already a region boundary
+                    pass
+        cache = getattr(self.storage, "region_cache", None)
+        if done and cache is not None:
+            # the split regions' cached epochs are stale: without this
+            # the next request sends one task over the old region (the
+            # reference's behaviour) and under-counts its cop tasks
+            cache.invalidate_range(*tablecodec.table_prefix_range(info.id))
+        return ResultSet(["TOTAL_SPLIT_REGION"], [(done,)])
 
     # -- KILL (ref: ast/misc.go:341 KillStmt; server.go:333 Kill) ------------
 
@@ -1842,8 +2148,55 @@ class Session:
             raise SQLError(f"Table '{ts.name}' doesn't exist") from None
 
     def _exec_explain(self, stmt: ast.ExplainStmt) -> ResultSet:
+        if stmt.analyze:
+            return self._exec_explain_analyze(stmt.stmt)
         lines = self._plan(stmt.stmt).explain().split("\n")
         return ResultSet(["plan"], [(line,) for line in lines])
+
+    def _exec_explain_analyze(self, inner: ast.StmtNode) -> ResultSet:
+        """EXPLAIN ANALYZE: execute the statement for real under a
+        runtime-stats collector, then render the executed plan annotated
+        with per-operator actuals (ref: the reference's EXPLAIN ANALYZE
+        over RuntimeStatsColl, executor/explain.go)."""
+        if not isinstance(inner, (ast.SelectStmt, ast.UnionStmt,
+                                  ast.InsertStmt, ast.UpdateStmt,
+                                  ast.DeleteStmt)):
+            raise SQLError(
+                "EXPLAIN ANALYZE supports SELECT/UNION and DML statements")
+        device = config.runtime_stats_device()
+        coll = rs.StatsCollector(device=device)
+        self._last_plan = None
+        with rs.collecting(coll):
+            self._run_stmt(inner)
+        plan = self._last_plan
+        if plan is None:
+            raise SQLError("EXPLAIN ANALYZE: no plan was executed")
+        # per-op mem comes from the statement's memory-tracker nodes
+        # (host + device ledgers), collected by default — NOT from the
+        # process-global backend watermark, which a concurrent
+        # statement's allocations would contaminate
+        mt = memtrack.current()
+        rows = []
+        for depth, node in plan.explain_nodes():
+            st = coll.get(node)
+            mnode = mt.get(node) if mt is not None else None
+            mem = rs.fmt_bytes(mnode.peak_total()) \
+                if mnode is not None else "-"
+            est = "" if node.est_rows is None else f"{node.est_rows:.0f}"
+            if st is None:
+                rows.append(("  " * depth + node.explain_line(), est,
+                             0, 0, "-", "-", mem, 0, "-", "-"))
+                continue
+            rows.append((
+                "  " * depth + node.explain_line(), est,
+                st.act_rows, st.loops, rs.fmt_ns(st.time_ns),
+                rs.fmt_ns(st.device_time_ns) if device else "-",
+                mem, st.cop_tasks, _fmt_pipeline(st), _fmt_kernel(st)))
+        return ResultSet(["id", "est_rows", "act_rows", "loops", "time",
+                          "device_time", "mem", "cop_tasks", "pipeline",
+                          "kernel"],
+                         rows)
+
 
     def _exec_analyze(self, stmt: ast.AnalyzeStmt):
         """ANALYZE TABLE: full-scan stats build + persist (ref:
@@ -2105,12 +2458,47 @@ def _type_name(c) -> str:
     return names.get(ft.tp, "unknown")
 
 
-def _op_dict(o) -> dict:
-    """One operator's runtime stats as the digest summary and the mode
-    memo take them. The port's OpStats carries no executor rows, loops
-    or wall time (the executor wrappers are not ported): those count 0."""
-    return {"name": o.name, "time_ns": 0, "act_rows": 0,
-            "device_time_ns": o.device_time_ns, "mode": o.mode}
+def _fmt_pipeline(st) -> str:
+    """EXPLAIN ANALYZE `pipeline` cell: how the operator's device work
+    was coalesced (superchunks/source chunks), how full the padded
+    buckets were, how long the host sat blocked on readback — and how
+    often the operator fell back to the host path (the note that makes
+    an invisible device->host cliff visible in the plan)."""
+    fb = f" fallback={st.fallbacks}" if st.fallbacks else ""
+    # encoded-execution mode (encoded / decoded / direct-agg /
+    # fused:<fragment>): how the operator consumed its dict columns —
+    # the note that makes an encoded->decoded regression diagnosable
+    # from the operator's chair
+    enc = f" enc={st.encoding}" if st.encoding else ""
+    if not st.superchunks:
+        return f"-{fb}{enc}" if fb or enc else "-"
+    return (f"{st.superchunks}sc/{st.coalesced_chunks}ch "
+            f"fill={st.fill_ratio():.2f} "
+            f"stall={rs.fmt_ns(st.pipeline_stall_ns)}{fb}{enc}")
+
+
+def _fmt_kernel(st) -> str:
+    """EXPLAIN ANALYZE `kernel` cell: which kernel family served the
+    operator, whether this statement paid a compile (miss) or rode the
+    in-process (cached) / persistent (hit) compile cache, the achieved
+    memory bandwidth, and where that sits against the platform's memory
+    roofline — e.g. `hashagg compile=cached 12.3GB/s roof=0.18`."""
+    if not st.kernel_family or not st.kernel_dispatches:
+        return "-"
+    from tidb_tpu_torch import profiler
+    s = st.kernel_family
+    if st.kernel_compile:
+        s += f" compile={st.kernel_compile}"
+    if st.mode:
+        s += f" mode={st.mode}"
+    g = profiler.achieved_gbps(st.kernel_bytes, st.kernel_busy_ns)
+    if g is not None:
+        s += f" {g:.1f}GB/s"
+        frac = profiler.roofline_fraction(st.kernel_bytes,
+                                          st.kernel_busy_ns)
+        if frac is not None:
+            s += f" roof={frac:.2f}"
+    return s
 
 
 def _format_chunk(ch) -> list[tuple]:

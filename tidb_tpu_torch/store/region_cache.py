@@ -100,6 +100,19 @@ class RegionCache:
                 del self._by_start[start]
             self._leaders.pop(region_id, None)
 
+    def invalidate_range(self, start: bytes, end: bytes) -> None:
+        """Drop every cached region intersecting [start, end): a split
+        inside the range (SPLIT TABLE) made their epochs stale, so the
+        next request re-resolves the range's regions (ref: TiDB's split
+        updates the region cache; the JAX package's keeps the old region
+        until a request's epoch error)."""
+        with self._mu:
+            stale = [r for r in self._by_start.values()
+                     if (not r.end or r.end > start) and
+                     (not end or r.start < end)]
+        for r in stale:
+            self.invalidate(r.id)
+
     def invalidate_all(self) -> None:
         """Drop every cached epoch and learned leader. Fired when a
         store-plane connection is lost (store/remote.py disconnect

@@ -523,6 +523,19 @@ class KVTxn(kv.Transaction):
         try:
             committer.execute()
             self.committed = True
+            pump = getattr(self.storage, "binlog_pump", None)
+            if pump is not None:
+                # change capture on commit success (ref: binloginfo pump
+                # hook, 2pc.go:664: the prewrite payload and the commit
+                # record as one event). A sink never fails a commit
+                from tidb_tpu_torch.binlog import make_event
+                try:
+                    ev = make_event(self.start_ts, committer.commit_ts,
+                                    muts)
+                    if ev is not None:
+                        pump.write(ev)
+                except Exception:   # noqa: BLE001
+                    pass
         finally:
             if not self.storage.async_commit_secondaries:
                 committer.close()

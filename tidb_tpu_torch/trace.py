@@ -1,20 +1,28 @@
-"""Statement tracing: lifecycle span trees.
+"""Statement tracing: lifecycle span trees, sampling, slow-trace
+capture, the retention ring and the Chrome trace-event export.
 
-The port's copy of the JAX package's trace.py, the span machinery only:
-`begin`/`end` open and close a root, `span()` hangs a timed child under
-the thread's current span (a no-op, still timed, with none), `event()`
-marks a point on it, and `propagate()`/`attached()` carry the current
-span into the coprocessor's pool workers, so storage-side spans (cop
-tasks and streams, HBM fill and patch, delta fold and merge, the hybrid
-agg's partitions) hang off the reader that issued them. `tree`,
-`validate` and `phases_of` export a finished tree.
+The port's copy of the JAX package's trace.py. `begin`/`end` open and
+close a root, `span()` hangs a timed child under the thread's current
+span (a no-op, still timed, with none), `event()` marks a point on it,
+and `propagate()`/`attached()` carry the current span into the
+coprocessor's pool workers, so storage-side spans (cop tasks and
+streams, HBM fill and patch, delta fold and merge, the hybrid agg's
+partitions) hang off the reader that issued them. `tree`, `validate`
+and `phases_of` export a finished tree.
 
-Left out, for the slice that brings the session and the server: the
-sampling decision and the bounded retention ring (`tidb_tpu_trace_sample`,
-`tidb_tpu_slow_trace_ms`, the `trace-ring` ledger node), the statement
-finish that feeds perfschema, the Chrome export of a retained record,
-and the cross-process parts (`origin`, `attach_remote`). A root's
-`sampled` flag is always False here.
+Retention: every statement gets a tree (perfschema's phase breakdown
+reads it), and some are retained into the bounded ring (`_Ring`) that
+the TRACE statement, `information_schema.statement_traces`, the status
+port's `/trace` and the Chrome export (`to_chrome`) serve: 1-in-N
+deterministic sampling (`tidb_tpu_trace_sample`), threshold capture
+(`tidb_tpu_slow_trace_ms`; the digest summary carries the trace id) and
+the TRACE statement, which forces retention (`finish_statement`). The
+ring is billed to a `trace-ring` memtrack server node with a registered
+shed action, so admission shedding and `/shed` reclaim it.
+
+Left out with the fleet: the cross-process parts (`origin`,
+`attach_remote`) and the member start nonce in a trace id; an id is the
+process's 24-bit sequence alone.
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ import time
 
 __all__ = ["Span", "SPAN_NAMES", "begin", "end", "span", "event",
            "annotate", "current_root", "active", "detach", "restore",
-           "attached", "propagate", "phase_ns", "log_tree", "tree",
-           "validate", "phases_of"]
+           "attached", "propagate", "phase_ns", "log_tree", "ensure_id",
+           "finish_statement", "tree", "validate", "phases_of",
+           "ring_snapshot", "ring_records", "ring_get", "ring_stats",
+           "to_chrome", "reset_for_tests"]
 
 log = logging.getLogger("tidb_tpu_torch.trace")
 
@@ -66,6 +76,13 @@ SPAN_NAMES = {
     # cluster_* memtable or a /fleet/* endpoint
     "cluster.fetch": "fan-out fetch over live members' status ports",
 }
+
+# retention bounds of the server-scope trace ring: records and an
+# estimated-bytes budget, billed to the trace-ring memtrack node
+_RING_CAP = 256
+_RING_BYTES_CAP = 16 << 20
+_SPAN_EST_BYTES = 256          # rough per-span record cost estimate
+
 
 class Span:
     # the last three slots are ROOT-ONLY retention state (sampling
@@ -117,7 +134,7 @@ def begin(name: str, **tags) -> Span:
     tree below either records for retention or is a pure phase-
     breakdown skeleton."""
     root = Span(name, tags)
-    root.sampled = False
+    root.sampled = _sample_next() if name == "statement" else False
     root.forced = False
     root.trace_id = None
     _tl.cur = root
@@ -262,6 +279,208 @@ def log_tree(root: Span, sql: str) -> None:
     log.info("trace for %r:\n%s", sql[:256], "\n".join(parts))
 
 
+# -- sampling ----------------------------------------------------------------
+
+_seq_lock = threading.Lock()
+_stmt_seq = 0
+_id_seq = 0
+
+# lazy config binding: trace.py keeps zero package imports at module
+# level (it loads before most of the package), and a per-statement
+# `from tidb_tpu_torch import config` would dominate the disarmed cost
+_config = None
+
+
+def _cfg():
+    global _config
+    if _config is None:
+        from tidb_tpu_torch import config
+        _config = config
+    return _config
+
+
+def _sample_next() -> bool:
+    """Deterministic 1-in-N: the N-th, 2N-th, ... statement since
+    process start (or reset) is sampled. One lock'd int increment per
+    statement — the whole disarmed cost besides the skeleton spans the
+    phase breakdown needs anyway."""
+    n = _cfg().trace_sample()
+    if n <= 0:
+        return False
+    global _stmt_seq
+    with _seq_lock:
+        _stmt_seq += 1
+        return _stmt_seq % n == 0
+
+
+def ensure_id(root: Span) -> int:
+    """The root's trace id, assigned on first need (the TRACE statement
+    reads it before retention runs): a 24-bit per-process sequence, so
+    ids stay monotonic within one process and min_id filtering
+    (ring_records) works. The reference folds its member start nonce
+    into the high bits; the port has no member plane."""
+    if root.trace_id is None:
+        global _id_seq
+        with _seq_lock:
+            _id_seq += 1
+            seq = _id_seq
+        root.trace_id = seq & 0xFFFFFF
+    return root.trace_id
+
+
+# -- the bounded, memtrack-billed trace ring ---------------------------------
+
+
+class _Ring:
+    """Finished trace records, newest last, bounded by count AND an
+    estimated-bytes budget billed to a `trace-ring` memtrack SERVER
+    node. The registered shed action clears the ring, so admission
+    shedding / GET /shed reclaim retained trees."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._records: list[dict] = []    # guarded-by: _mu
+        self._bytes = 0                   # guarded-by: _mu
+        self._node = None                 # guarded-by: _mu (memtrack)
+
+    def _tracker(self):
+        """Lazy node creation (imports memtrack on first retention)."""
+        from tidb_tpu_torch import memtrack
+        with self._mu:
+            if self._node is None:
+                self._node = memtrack.server_node("trace-ring")
+                self._node.add_spill_action(self.shed)
+            return self._node
+
+    def append(self, rec: dict) -> None:
+        node = self._tracker()
+        node.consume(host=rec["cost"])
+        evicted = 0
+        with self._mu:
+            self._records.append(rec)
+            self._bytes += rec["cost"]
+            while len(self._records) > _RING_CAP or \
+                    self._bytes > _RING_BYTES_CAP:
+                old = self._records.pop(0)
+                self._bytes -= old["cost"]
+                evicted += old["cost"]
+        if evicted:
+            node.release(host=evicted)
+
+    def shed(self) -> int:
+        """Drop every retained record (the memtrack shed action).
+        -> bytes freed."""
+        with self._mu:
+            freed = self._bytes
+            self._records.clear()
+            self._bytes = 0
+            node = self._node
+        if node is not None and freed:
+            node.release(host=freed)
+        return freed
+
+    def get(self, trace_id: int) -> dict | None:
+        with self._mu:
+            for rec in self._records:
+                if rec["trace_id"] == trace_id:
+                    return rec
+        return None
+
+    def records(self, min_id: int = 0) -> list[dict]:
+        with self._mu:
+            return [r for r in self._records if r["trace_id"] > min_id]
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            return {"records": len(self._records), "bytes": self._bytes}
+
+
+_RING = _Ring()
+
+
+def _span_count(root: Span) -> int:
+    n = 1
+    for c in root.children:
+        n += _span_count(c)
+    return n
+
+
+def finish_statement(root: Span, sql: str, error: str | None = None,
+                     slow_ms: int | None = None) -> int | None:
+    """Retention decision for one ENDED statement root: keep the full
+    tree in the ring when the statement was sampled, forced (TRACE), or
+    ran past `tidb_tpu_slow_trace_ms`. -> trace id when retained, else
+    None. The untraced path is one flag test + one sysvar read.
+    `slow_ms` overrides the registry read — the session passes its
+    shadowed (session-SET) value, captured while its overlay was still
+    installed. With no fleet, a record's origin is itself: its
+    origin_trace_id is its own id and its origin_member is empty."""
+    if root.forced:
+        reason = "forced"
+    elif root.sampled:
+        reason = "sampled"
+    else:
+        if slow_ms is None:
+            slow_ms = _cfg().slow_trace_ms()
+        if slow_ms <= 0 or root.duration_ns < slow_ms * 1_000_000:
+            return None
+        reason = "slow"
+    dur_ns = root.duration_ns
+    from tidb_tpu_torch import metrics, perfschema
+    tid = ensure_id(root)
+    rec = {
+        "trace_id": tid,
+        "sql": sql[:512],
+        "digest": perfschema.sql_digest(sql)[0],
+        "start_unix": time.time() - dur_ns / 1e9,
+        "duration_ns": dur_ns,
+        "reason": reason,
+        "error": error and error[:256],
+        "span_count": _span_count(root),
+        "origin_trace_id": tid,
+        "origin_member": "",
+        "root": root,
+    }
+    rec["cost"] = rec["span_count"] * _SPAN_EST_BYTES + len(rec["sql"])
+    _RING.append(rec)
+    metrics.counter(metrics.TRACES, {"reason": reason})
+    return tid
+
+
+def ring_snapshot() -> list[dict]:
+    """Summaries of retained traces, oldest first (the
+    information_schema.statement_traces rows and GET /trace list)."""
+    out = []
+    for rec in _RING.records():
+        out.append({k: rec[k] for k in
+                    ("trace_id", "digest", "sql", "start_unix",
+                     "duration_ns", "span_count", "reason", "error",
+                     "origin_trace_id", "origin_member")})
+    return out
+
+
+def ring_records(min_id: int = 0) -> list[dict]:
+    """Full retained records (bench attribution walks their trees)."""
+    return _RING.records(min_id)
+
+
+def ring_get(trace_id: int) -> dict | None:
+    return _RING.get(trace_id)
+
+
+def ring_stats() -> dict:
+    return _RING.snapshot()
+
+
+def reset_for_tests() -> None:
+    """Clear the ring and the sampling counters (test isolation)."""
+    global _stmt_seq, _id_seq
+    _RING.shed()
+    with _seq_lock:
+        _stmt_seq = 0
+        _id_seq = 0
+
+
 # -- exports -----------------------------------------------------------------
 
 
@@ -346,3 +565,40 @@ def phases_of(root: Span) -> dict:
     out["other"] = max(0, total - sum(
         v for k, v in out.items() if k != "total"))
     return out
+
+
+def to_chrome(rec: dict) -> dict:
+    """Chrome trace-event JSON for one retained record: complete ("X")
+    events per span in µs relative to the root, instant ("i") events
+    for the recovery transitions, one lane per OS thread — load it in
+    Perfetto / chrome://tracing to SEE dispatch-ahead depth, slot waits
+    and finalize serialization across the statement's threads."""
+    root: Span = rec["root"]
+    base = root.start_ns
+    events = [{"ph": "M", "pid": 1, "tid": 0, "name": "process_name",
+               "args": {"name": f"tidb-tpu trace {rec['trace_id']}"}}]
+
+    def walk(s: Span) -> None:
+        ev = {"ph": "X", "pid": 1, "tid": s.tid, "name": s.name,
+              "cat": "statement",
+              "ts": round((s.start_ns - base) / 1e3, 3),
+              "dur": round(s.duration_ns / 1e3, 3)}
+        if s.tags:
+            ev["args"] = {k: str(v) for k, v in s.tags.items()}
+        events.append(ev)
+        for n, t, tg in s.events or ():
+            ie = {"ph": "i", "pid": 1, "tid": s.tid, "name": n,
+                  "cat": "fault", "s": "t",
+                  "ts": round((t - base) / 1e3, 3)}
+            if tg:
+                ie["args"] = {k: str(v) for k, v in tg.items()}
+            events.append(ie)
+        for c in s.children:
+            walk(c)
+
+    walk(root)
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "otherData": {"trace_id": rec["trace_id"],
+                          "sql": rec["sql"],
+                          "digest": rec["digest"],
+                          "reason": rec["reason"]}}

@@ -253,6 +253,7 @@ def disable(name: str) -> None:
 def disable_all() -> None:
     with _mu:
         _ARMED.clear()
+        _SYSVAR_ARMED.clear()
 
 
 def armed() -> dict[str, dict]:
@@ -304,11 +305,16 @@ def _fire(name: str, ap: _Armed, args):
     return arg(*args)           # "call"
 
 
-# -- bulk arming (env) --------------------------------------------------------
+# -- bulk arming (env / sysvar) ----------------------------------------------
 
-def arm_from_string(specs: str) -> list[str]:
-    """Parse ``name=spec;name=spec`` and arm each point. Returns the
-    armed names. Raises on unknown names / bad specs — arming must fail
+_SYSVAR_ARMED: set = set()     # names the sysvar armed; guarded-by: _mu
+
+
+def arm_from_string(specs: str, owner_sysvar: bool = False) -> list[str]:
+    """Parse ``name=spec;name=spec`` and arm each point; with
+    owner_sysvar=True the listed set REPLACES whatever a previous sysvar
+    write armed (the sysvar's value is declarative). Returns the armed
+    names. Raises on unknown names / bad specs — arming must fail
     loudly, a typo'd chaos schedule that silently arms nothing would
     fake a green run."""
     pairs = []
@@ -321,7 +327,8 @@ def arm_from_string(specs: str) -> list[str]:
         name, spec = part.split("=", 1)
         pairs.append((name.strip(), spec.strip()))
     # validate EVERYTHING before arming ANYTHING: a bad entry halfway
-    # through must not leave earlier points armed
+    # through must not leave earlier points armed (and, on the sysvar
+    # surface, un-owned)
     parsed = []
     for name, spec in pairs:
         if name not in REGISTRY:
@@ -331,8 +338,26 @@ def arm_from_string(specs: str) -> list[str]:
     with _mu:
         for name, ap in parsed:
             _ARMED[name] = ap
+        if owner_sysvar:
+            for old in _SYSVAR_ARMED - set(names):
+                _ARMED.pop(old, None)
+            _SYSVAR_ARMED.clear()
+            _SYSVAR_ARMED.update(names)
     return names
 
 
-if os.environ.get("TIDB_TPU_FAILPOINTS"):
-    arm_from_string(os.environ["TIDB_TPU_FAILPOINTS"])
+def _sysvar_changed(value) -> None:
+    """config.on_change hook for `tidb_tpu_failpoints`: the sysvar's
+    string IS the SET-armed set."""
+    arm_from_string(str(value or ""), owner_sysvar=True)
+
+
+def _install() -> None:
+    from tidb_tpu_torch import config
+    config.on_change("tidb_tpu_failpoints", _sysvar_changed)
+    env = os.environ.get("TIDB_TPU_FAILPOINTS")
+    if env:
+        arm_from_string(env)
+
+
+_install()
