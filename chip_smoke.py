@@ -53,6 +53,11 @@ Phases, one JSON line each:
           dispatched fused, no fallback, and every statement's ledger at
           0 after it; its session and store carry on into store and
           htap
+  bench   the port's bench entry (tidb_tpu_torch.bench.run) on the sql
+          phase's store, Q3 and Q5 through the materialized coprocessor:
+          Q1/Q3/Q5 with tidb_tpu_device = 1 and = 0, which must agree;
+          its line (bench.py's keys, the north-star metric) is printed
+          as it is
   store   the hand-built store plans on the sql phase's store (no load
           of their own; tpch.table_infos() where they equal the
           TableInfos CREATE TABLE made, else the store's): run_q1_store
@@ -120,6 +125,23 @@ Phases, one JSON line each:
           misses and refills every block), the digest summary; then
           `python -m tidb_tpu_torch` as a child serving 65,536 rows and
           exiting 0 on SIGTERM
+  fleet   the fleet on the card (fleet_phase): a store-plane process
+          that loads a snapshot of an SF 0.1 store (FLEET_SF) and two
+          SQL members, each a fresh interpreter with its own chunk and
+          HBM caches, driven over the wire: cold and hot Q1 on each
+          member (4 HBM hits, no host->device byte hot; the other
+          member's counters unmoved), Q3 and Q5; a 64-row batch
+          committed on one member patches the other's blocks from the
+          journal window (window pulls and patched rows climb, no
+          chunk-cache or HBM miss), equal to Q1Mirror's truth and to the
+          host path; Q1 with tidb_tpu_fleet_local_cache = 0 runs on the
+          store plane's device; cluster_members, a TRACE id above
+          0xFFFFFF found as a store-plane record of
+          cluster_statement_traces, /fleet/top; SIGKILL of member 0
+          (the survivor serves, cluster_processlist returns partial rows
+          with an "unreachable" warning), its restart and rejoin; each
+          process's own /status shows the kernel launched in it, by
+          shape; Fleet.stop() leaves no child
   faults  the device plane under injected faults, on Q1 from a store of
           its own at SF 0.1 (CHECK_SF) on one fan-out thread: a dispatch
           fault once (retried on the card, no fallback), then in every
@@ -140,7 +162,9 @@ Phases, one JSON line each:
           cross join, per-chunk Q3 and Q5 and the loaded table's Q1, and
           the server phase's cold, warm and prepared Q1 and cold Q3 and
           Q5 over the wire gave it (their calls recorded by
-          segsum_bench.record_calls),
+          segsum_bench.record_calls), and the fleet's processes
+          reported (a shape no other path recorded is held and timed on
+          seeded inputs of that shape),
           held again on those
           very inputs and timed: device time beside its host time per
           call, the plain version, one PyTorch library call and the bound
@@ -2756,6 +2780,394 @@ def server_phase(args, dev, recorded, storage, d, counter) -> dict:
     return out
 
 
+# The fleet phase's store plane loads a snapshot of a TPC-H store at SF
+# 0.1 (FLEET_SF, or --sf where smaller), cut from the sql phase's SF 1:
+# each member's cold fill ships every KV pair through the Python wire
+# codec (~10 s per member at SF 0.1 on the CPU test box), and the SF 1
+# snapshot (~2 GB, ~70 s to write and as long to load) would take the
+# whole of the phase's budget
+FLEET_SF = 0.1
+# each SQL member's HBM block-cache budget: the store plane and both
+# members share one card, each with its own CUDA context
+FLEET_CACHE_BYTES = 2 << 30
+
+
+def bench_step(args, dev, recorded, sess, storage, d, counter) -> dict:
+    """The port's bench entry (tidb_tpu_torch.bench.run) on the sql
+    phase's store with the materialized coprocessor: Q1/Q3/Q5 with
+    tidb_tpu_device = 1 (one cold and one timed run) and = 0 (one fill
+    and one timed run), which must agree; its line must carry bench.py's
+    keys and is printed as it is. Its segment_sum calls (the device
+    mode's: the host mode makes none) go to recorded["bench"].
+    -> the step's line."""
+    from tidb_tpu_torch import bench
+    from tidb_tpu_torch.benchmarks import segsum_bench
+    from tidb_tpu_torch.ops import segsum
+    # Q3 and Q5 read through the materialized coprocessor, as in the sql
+    # phase: streamed, their selection regions re-scan the store on
+    # every run (24-28 s each at SF 1 on the card) and the step would
+    # pass its budget
+    sess.execute("SET @@tidb_tpu_copr_stream = 0")
+    t0 = time.perf_counter()
+    try:
+        with segsum_bench.record_calls() as rec:
+            segsum.launches = 0
+            line = bench.run(sess, storage, d, iters=1, host_iters=1)
+            launched = segsum.launches
+    finally:
+        sess.execute("SET @@tidb_tpu_copr_stream = 1")
+    seconds = time.perf_counter() - t0
+    recorded["bench"] = recorded_path("bench", rec, launched)
+    if tuple(line) != bench.KEYS or line["metric"] != bench.METRIC:
+        raise AssertionError(f"bench: keys {tuple(line)}, not {bench.KEYS}")
+    launches = {q: line["detail"][q]["segsum_launches"]
+                for q in ("q1", "q3", "q5")}
+    if not launches["q1"] or sum(launches.values()) != launched:
+        raise AssertionError(f"bench: no kernel launch in Q1, or the "
+                             f"line's {launches} are not the run's "
+                             f"{launched} launches")
+    if line["detail"]["copr_stream"] != 0:
+        raise AssertionError("bench: the line does not record the "
+                             "materialized coprocessor it ran on")
+    print(json.dumps(line), flush=True)
+    return {"phase": "bench", "seconds": seconds, "value": line["value"],
+            "vs_baseline": line["vs_baseline"], "launches": launches}
+
+
+def fleet_phase(args, dev) -> tuple[dict, dict]:
+    """The fleet on one card (tidb_tpu_torch/fleet.py): one store-plane
+    process and two SQL members, each a fresh interpreter on `dev`
+    with its own chunk and HBM caches, all SQL over the wire
+    (WireClient). In order:
+
+    1. TPC-H at min(--sf, FLEET_SF) loaded in process and written with
+       store/snapshot.save (timed); the store plane loads it
+       (`storeserve --snapshot`, the Fleet's default --retain-ms 5000).
+    2. Member 0: Q1 cold (a remote fill of its chunk and HBM caches: 4
+       misses each), then hot: 4 HBM hits and no host->device byte on
+       its /status; rows equal the numpy truth as text.
+    3. Member 1: Q1 cold and hot: its own cache fills (4 HBM misses)
+       while member 0's counters stay put; then Q3 and Q5, each equal to
+       its truth.
+    4. A 64-row OLTP batch committed as SQL on member 1; Q1 on member 0
+       pulls the journal window (pulls{outcome="window"} and patched
+       rows climb, chunk-cache and HBM misses flat), equal to
+       Q1Mirror's truth; with tidb_tpu_device = 0 the same rows.
+    5. Q1 on member 1 with tidb_tpu_fleet_local_cache = 0: the store
+       plane runs the coprocessor on its own device (its segment-sum
+       launches climb), rows equal the mirror.
+    6. cluster_members from both members lists 2 SQL members and the
+       store plane; TRACE FORMAT='json' on member 0 gives an id above
+       0xFFFFFF, and from member 1 cluster_statement_traces finds a
+       store-plane record whose origin_member is member 0; GET
+       /fleet/top answers on each status port.
+    7. SIGKILL member 0: member 1 still serves hot Q1; its
+       cluster_processlist returns partial rows in under 10 s with an
+       "unreachable" warning; member 0 restarts and rejoins
+       cluster_members, and its first statement equals the in-process
+       truth.
+    8. Each member's own /status shows the segment-sum kernel launched
+       in it (segsum_launches, by shape in segsum_shapes).
+    Fleet.stop() leaves no child process, and no session ledger of this
+    process holds a byte. -> (the phase's line, the kernel's launches by
+    shape per process of the fleet)."""
+    import gc
+    import signal
+    from tidb_tpu_torch import memtrack
+    from tidb_tpu_torch.benchmarks import tpch
+    from tidb_tpu_torch.fleet import Fleet
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.store import snapshot
+    from tidb_tpu_torch.store.storage import new_mock_storage
+    phase_t0 = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sf = min(args.sf, FLEET_SF)
+    d = tpch.ScaledTpch(sf, args.seed)
+    storage = new_mock_storage(device=dev)
+    sess = Session(storage)
+    sess.execute("CREATE DATABASE tpch")
+    sess.execute("USE tpch")
+    t0 = time.perf_counter()
+    loaded = tpch.load(sess, storage, d)
+    load_s = time.perf_counter() - t0
+    small = "SELECT COUNT(*), SUM(s_nationkey) FROM supplier"
+    small_truth = as_text(sess.query(small).rows)
+    if sess.last_mem_left:
+        raise AssertionError(f"fleet load: the statement's ledger still "
+                             f"holds {sess.last_mem_left} B")
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "tidb_tpu_torch", "_build", "fleet_store.snap")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    snapshot.save(path, storage.cluster, storage.engine)
+    save_s = time.perf_counter() - t0
+    out = {"phase": "fleet", "sf": sf, "rows_loaded": loaded,
+           "load_s": load_s, "snapshot_save_s": save_s,
+           "snapshot_bytes": os.path.getsize(path), "runs": {}}
+    sess.close()
+    storage.close()
+    del sess, storage
+    gc.collect()
+    truth = {q: as_text(tpch.as_session_rows(q, f(d))) for q, f in
+             (("q1", tpch.q1_truth), ("q3", tpch.q3_truth),
+              ("q5", tpch.q5_truth))}
+    regions = 4
+    shapes = {}
+    # the kernel launches on a card only (a CPU dry run has none)
+    on_card = dev.type == "cuda"
+    fleet = Fleet(n_sql=2, device=str(dev),
+                  store_args=["--snapshot", path],
+                  sql_args=["--set", "tidb_tpu_device_cache_bytes="
+                            f"{FLEET_CACHE_BYTES}"])
+    try:
+        t0 = time.perf_counter()
+        fleet.start()
+        fleet.wait_healthy(timeout=120)
+        out["start_s"] = time.perf_counter() - t0
+        m0, m1 = fleet.members
+
+        def status(port):
+            return http_get(port, "/status")
+
+        def count(doc, name, label=""):
+            return sum(v for k, v in doc["metrics"].items()
+                       if (k == name or k.startswith(name + "{")) and
+                       label in k)
+
+        def moved(before, after):
+            return {"hbm_hits": count(after, "tidb_tpu_hbm_cache_hits_total")
+                    - count(before, "tidb_tpu_hbm_cache_hits_total"),
+                    "hbm_misses":
+                        count(after, "tidb_tpu_hbm_cache_misses_total") -
+                        count(before, "tidb_tpu_hbm_cache_misses_total"),
+                    "chunk_misses": after["chunk_cache"]["misses"] -
+                        before["chunk_cache"]["misses"],
+                    "h2d_bytes": after["h2d_bytes"] - before["h2d_bytes"],
+                    "launches": after["segsum_launches"] -
+                        before["segsum_launches"]}
+
+        def run(c, m, name, label, sql=None, want=None):
+            where = f"fleet member {m.index} {name} {label}"
+            s0 = status(m.status_port)
+            t0 = time.perf_counter()
+            cols_rows = c.query(sql or getattr(tpch, name.upper()))
+            seconds = time.perf_counter() - t0
+            s1 = status(m.status_port)
+            rows = cols_rows[1]
+            want = truth[name] if want is None else want
+            if rows != want:
+                raise AssertionError(f"{where}: rows differ from the "
+                                     f"truth:\n{rows}\n{want}")
+            got = {"seconds": seconds, **moved(s0, s1)}
+            out["runs"][f"m{m.index}_{name}_{label}"] = got
+            return got, s1
+
+        c0 = WireClient(m0.port, db="tpch")
+        c1 = WireClient(m1.port, db="tpch")
+        # 2. member 0 fills its own caches over the wire
+        cold, _ = run(c0, m0, "q1", "cold")
+        hot, m0_doc = run(c0, m0, "q1", "hot")
+        if cold["hbm_misses"] != regions or cold["chunk_misses"] != regions:
+            raise AssertionError(f"fleet m0 cold: {regions} chunk and HBM "
+                                 f"fills expected, {cold}")
+        if hot["hbm_hits"] != regions or hot["hbm_misses"] or \
+                hot["h2d_bytes"] or (on_card and hot["launches"] <= 0):
+            raise AssertionError(f"fleet m0 hot: {regions} HBM hits, no "
+                                 f"host->device byte and a launch "
+                                 f"expected, {hot}")
+        # 3. member 1's own caches; member 0's stay put
+        cold1, _ = run(c1, m1, "q1", "cold")
+        hot1, _ = run(c1, m1, "q1", "hot")
+        if cold1["hbm_misses"] != regions or hot1["hbm_hits"] != regions \
+                or hot1["h2d_bytes"]:
+            raise AssertionError(f"fleet m1: its own cache did not fill "
+                                 f"{cold1} {hot1}")
+        still = moved(m0_doc, status(m0.status_port))
+        if any(still.values()):
+            raise AssertionError(f"fleet: member 0's counters moved under "
+                                 f"member 1's runs {still}")
+        run(c1, m1, "q3", "cold")
+        run(c1, m1, "q5", "cold")
+        # 4. coherence: a batch committed on member 1, read on member 0
+        mirror = tpch.Q1Mirror(d)
+        n = d.counts["lineitem"]
+        b = tpch.write_batch(d, np.arange(3 * (n // 4), n), args.seed + 5,
+                             64)
+        c1.query("BEGIN")
+        for sql in tpch.sql_batch(b):
+            c1.query(sql)
+        c1.query("COMMIT")
+        mirror.apply(b)
+        time.sleep(1.0)     # the commit's secondaries resolve async
+        mtruth = as_text(tpch.as_session_rows("q1", mirror.truth()))
+        pulls = "tidb_tpu_fleet_journal_pulls_total"
+        patched = "tidb_tpu_fleet_journal_patched_rows_total"
+        s0 = status(m0.status_port)
+        coh, s1 = run(c0, m0, "q1", "patched", want=mtruth)
+        coh["window_pulls"] = count(s1, pulls, 'outcome="window"') - \
+            count(s0, pulls, 'outcome="window"')
+        coh["patched_rows"] = count(s1, patched) - count(s0, patched)
+        if coh["window_pulls"] <= 0 or coh["patched_rows"] <= 0 or \
+                coh["chunk_misses"] or coh["hbm_misses"]:
+            raise AssertionError(f"fleet coherence: member 0 did not "
+                                 f"patch from the journal window {coh}")
+        c0.query("SET @@tidb_tpu_device = 0")
+        run(c0, m0, "q1", "host", want=mtruth)
+        c0.query("SET @@tidb_tpu_device = 1")
+        # 5. the store plane's own device path
+        st0 = status(fleet.store_status_port)
+        c1.query("SET @@tidb_tpu_fleet_local_cache = 0")
+        run(c1, m1, "q1", "store_plane", want=mtruth)
+        c1.query("SET @@tidb_tpu_fleet_local_cache = 1")
+        st1 = status(fleet.store_status_port)
+        out["store_plane_launches"] = st1["segsum_launches"] - \
+            st0["segsum_launches"]
+        if on_card and out["store_plane_launches"] <= 0:
+            raise AssertionError("fleet: the store plane's coprocessor "
+                                 "never launched the kernel")
+        # 6. the cluster plane
+        members_sql = ("SELECT member_id, role FROM "
+                       "information_schema.cluster_members")
+        for c in (c0, c1):
+            roles = sorted(r[1] for r in c.query(members_sql)[1])
+            if roles != ["sql", "sql", "store"]:
+                raise AssertionError(f"fleet: cluster_members {roles}")
+        res = c0.query("TRACE FORMAT='json' SELECT s_nationkey FROM supplier "
+                       "WHERE s_suppkey = 7")
+        tid = json.loads(res[1][0][0])["trace_id"]
+        if tid <= 0xFFFFFF:
+            raise AssertionError(f"fleet: trace id {tid} has no member "
+                                 "nonce")
+        store_ids = {r[0] for r in c1.query(members_sql)[1]
+                     if r[1] == "store"}
+        issuer = f"{fleet.host}:{m0.status_port}:"
+        deadline = time.monotonic() + 20
+        while True:
+            hits = [r for r in c1.query(
+                "SELECT member, origin_member FROM information_schema."
+                f"cluster_statement_traces WHERE origin_trace_id = {tid}")[1]
+                if r[0] in store_ids]
+            if hits:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet: no store-plane record of "
+                                     f"trace {tid}")
+            time.sleep(0.25)
+        if not hits[0][1].startswith(issuer):
+            raise AssertionError(f"fleet: origin_member {hits} is not "
+                                 f"member 0 ({issuer})")
+        out["trace"] = {"trace_id": tid, "store_records": len(hits)}
+        for port in (m0.status_port, m1.status_port,
+                     fleet.store_status_port):
+            top = http_get(port, "/fleet/top")
+            if len(top["members"]) != 3:
+                raise AssertionError(f"fleet: /fleet/top on {port} {top}")
+        # 8. (read before the SIGKILL) the kernel ran in each member
+        for m in (m0, m1):
+            doc = status(m.status_port)
+            if on_card and doc["segsum_launches"] <= 0:
+                raise AssertionError(f"fleet: the kernel never launched "
+                                     f"in member {m.index}")
+            shapes[f"fleet-member{m.index}"] = doc["segsum_shapes"]
+        shapes["fleet-store"] = status(fleet.store_status_port)[
+            "segsum_shapes"]
+        out["launches"] = {p: sum(n for _k, n in s)
+                           for p, s in shapes.items()}
+        # 7. chaos
+        c0.close()
+        t0 = time.perf_counter()
+        fleet.kill(0, signal.SIGKILL)
+        run(c1, m1, "q1", "after_kill", want=mtruth)
+        t0 = time.perf_counter()
+        plist = c1.query("SELECT member, id FROM "
+                         "information_schema.cluster_processlist")[1]
+        plist_s = time.perf_counter() - t0
+        warns = c1.query("SHOW WARNINGS")[1]
+        dead = f"{fleet.host}:{m0.status_port}:"
+        if plist_s >= 10 or not plist or \
+                any(r[0].startswith(dead) for r in plist) or \
+                not any("unreachable" in (r[2] or "") for r in warns):
+            raise AssertionError(f"fleet: partial processlist after the "
+                                 f"kill {plist} {warns} in {plist_s} s")
+        out["processlist_after_kill_s"] = plist_s
+        t0 = time.perf_counter()
+        m0 = fleet.restart(0)
+        fleet.wait_healthy(timeout=120)
+        out["restart_s"] = time.perf_counter() - t0
+        rejoined = f"{fleet.host}:{m0.status_port}:"
+        deadline = time.monotonic() + 20
+        while not any(r[0].startswith(rejoined)
+                      for r in c1.query(members_sql)[1]):
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet: restarted member 0 never "
+                                     "rejoined cluster_members")
+            time.sleep(0.25)
+        c0 = WireClient(m0.port, db="tpch")
+        run(c0, m0, "supplier", "after_restart", sql=small,
+            want=small_truth)
+        c0.close()
+        c1.close()
+    finally:
+        procs = [m.proc for m in fleet.members] + [fleet.store_proc]
+        fleet.stop()
+        if os.path.exists(path):
+            os.remove(path)
+    alive = [p.pid for p in procs if p is not None and p.poll() is None]
+    if alive:
+        raise AssertionError(f"fleet: children still running {alive}")
+    held = [t for t in memtrack.sessions_snapshot()
+            if t["label"].startswith("session-") and t["host"] + t["device"]]
+    if held:
+        raise AssertionError(f"fleet: session ledgers held {held}")
+    out["seconds"] = time.perf_counter() - phase_t0
+    return out, shapes
+
+
+def fleet_kernel_entries(fleet_shapes, timed, errs, held_on, dev,
+                         seed) -> list:
+    """The kernels line's entries of the fleet path: each process of the
+    fleet reports its launches by shape on /status (the smoke cannot
+    record a child's inputs). A shape other paths recorded carries their
+    hold (`held_on` names them: the error is the largest on their
+    inputs) and the first one's timing (`timed_on`); any other is held
+    and timed here on four seeded inputs of the same shape
+    (segsum_case)."""
+    from tidb_tpu_torch.benchmarks import segsum_bench
+    from tidb_tpu_torch.ops import segsum
+    rng = np.random.default_rng(seed)
+    out = []
+    for path, shapes in fleet_shapes.items():
+        for key, calls in shapes:
+            key = tuple(key)
+            if len(key) == 4:       # 1-D values: one lane
+                key = (key[0], 1, *key[1:])
+            n, k, c, dtype, mask = key
+            where = f"{path}: {n}x{k} {dtype}, C={c}, {mask} mask"
+            if key not in timed:
+                worst = {"float32": 0.0, "float64": 0.0, "int64": 0}
+                inputs = []
+                for _ in range(4):
+                    # ids in range, as a member's are (index_add_, the
+                    # library call timed beside the kernel, asserts on
+                    # one outside [0, C))
+                    v, i, m = segsum_case(
+                        rng, getattr(torch, dtype), n, k, c, mask, dev,
+                        ids=rng.integers(0, c, n).astype(np.int32))
+                    hold(segsum.segment_sum(v, i, c, valid=m), v, i, c, m,
+                         where, worst)
+                    inputs.append((v, i, m, c))
+                seeded = f"{path} (seeded inputs of its shape)"
+                timed[key] = {"timed_on": seeded,
+                              **segsum_bench.time_shape(inputs)}
+                errs[key] = max(worst.values())
+                held_on[key] = [seeded]
+            out.append((where, path, calls, errs[key], 0, timed[key],
+                        ", ".join(held_on[key])))
+    return out
+
+
 def kernel_profile() -> dict:
     """The kernel-profile registry (tidb_tpu_torch.profiler) as the
     process's runs left it: per kernel family and plan, dispatches, busy
@@ -2993,12 +3405,16 @@ def main() -> int:
     del d, tables
     out, kept = timed("sql", sql_phase, args, dev, recorded)
     emit(out)
+    emit(timed("bench", bench_step, args, dev, recorded, **kept))
     emit(timed("store", store_phase, args, dev, recorded, **kept))
     out, kept = timed("htap", htap_phase, args, dev, recorded, **kept)
     emit(out)
     out, kept = timed("sqlrest", sqlrest_phase, args, dev, recorded, **kept)
     emit(out)
     emit(timed("server", server_phase, args, dev, recorded, **kept))
+    del kept    # the earlier phases' store and its HBM blocks go
+    out, fleet_shapes = timed("fleet", fleet_phase, args, dev)
+    emit(out)
     emit(timed("faults", faults_phase, args, dev))
     t_kernel = time.perf_counter()
 
@@ -3009,7 +3425,7 @@ def main() -> int:
     # recorded it, and later paths of the same shape carry that timing
     # (`timed_on` names the path)
     from tidb_tpu_torch.benchmarks import segsum_bench
-    entries, timed = [], {}
+    entries, timed, errs, held_on = [], {}, {}, {}
     for path, rec in recorded.items():
         for key, ent in rec.shapes.items():
             n, k, c, dtype, mask = key
@@ -3021,11 +3437,16 @@ def main() -> int:
             if key not in timed:
                 timed[key] = {"timed_on": path,
                               **segsum_bench.time_shape(ent["inputs"])}
+            errs[key] = max(errs.get(key, 0), *worst.values())
+            held_on.setdefault(key, []).append(path)
             entries.append((where, path, ent["calls"], max(worst.values()),
-                            len(ent["inputs"]), timed[key]))
+                            len(ent["inputs"]), timed[key], path))
+    entries += fleet_kernel_entries(fleet_shapes, timed, errs, held_on, dev,
+                                    args.seed)
     emit({"phase": "kernel", "name": "segment_sum", **parity,
-          "timing": {where: {"launches": calls, "inputs_held": held, **t}
-                     for where, _p, calls, _e, held, t in entries}})
+          "timing": {where: {"launches": calls, "inputs_held": held,
+                             "held_on": on, **t}
+                     for where, _p, calls, _e, held, t, on in entries}})
     walls["kernel"] = time.perf_counter() - t_kernel
     emit({"phase": "wall", "seconds": walls,
           "total_s": time.perf_counter() - t_start})
@@ -3035,10 +3456,10 @@ def main() -> int:
         "source": "tidb_tpu_torch/csrc/segsum.cu",
         "replaces": "tidb_tpu/ops/pallas_agg.py:147",
         "launches": calls, "path": path, "timed_on": t["timed_on"],
-        "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "held_on": on, "max_abs_err": err, "ms": t["kernel_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}
-        for where, path, calls, err, _h, t in entries]})
+        for where, path, calls, err, _h, t, on in entries]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,10 @@ after CPU runs of Q1, Q18's inner block, Q1, Q3 and Q5 through the store
 under the device plane, Q1 as SQL through the port's Session, and Q1
 over the wire through the port's Server, in a fresh process), and its
 entry points run on CUDA unless told otherwise, raising where there is
-none instead of quietly running on the CPU; `python -m tidb_tpu_torch`
-without `--device cpu` exits non-zero there instead of serving on the
-CPU."""
+none instead of quietly running on the CPU (the fleet's store plane,
+`connect`, `Fleet` and the benchmark tools too); `python -m
+tidb_tpu_torch` without `--device cpu` exits non-zero there instead of
+serving on the CPU."""
 
 import ast
 import json
@@ -24,7 +25,9 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "tidb_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "tidb_tpu")
+# `tests` too: the JAX package's test helpers import it (the port keeps
+# its own MySQL client, util/mysqlclient.py)
+FORBIDDEN = ("jax", "jaxlib", "tidb_tpu", "tests")
 
 
 def _imports(path: Path):
@@ -58,6 +61,44 @@ SQL_STACK = ("parser", "plan", "ddl", "meta", "structure", "session",
 SERVER_SLICE = ("server/__init__.py", "server/packet.py", "server/status.py",
                 "__main__.py", "privilege.py", "bootstrap.py", "owner.py",
                 "perfschema.py", "metrics_history.py", "errcode.py")
+
+
+# the fleet slice's modules and the bench entry, each scanned by the test
+# above (host-only copies included: the port keeps its own)
+FLEET_SLICE = ("store/wire.py", "store/remote.py", "store/fleetcop.py",
+               "member.py", "fleet.py", "util/statusclient.py",
+               "store/rawkv.py", "benchmarks/benchkv.py",
+               "benchmarks/benchraw.py", "benchmarks/benchdb.py",
+               "benchmarks/benchfilesort.py", "util/testleak.py",
+               "server/xserver.py", "bench.py", "util/mysqlclient.py")
+
+
+@pytest.mark.parametrize("mod", FLEET_SLICE)
+def test_fleet_slice_module_is_scanned(mod):
+    path = PKG / mod
+    assert path in set(PKG.rglob("*.py"))
+    assert not [n for n in _imports(path) if _forbidden(n)], mod
+
+
+def test_fleet_entry_points_default_to_cuda():
+    _no_cuda()
+    from tidb_tpu_torch.benchmarks import benchdb, benchkv, benchraw
+    from tidb_tpu_torch.fleet import Fleet
+    from tidb_tpu_torch.store.remote import (RemoteStorage, StorageServer,
+                                             connect)
+    calls = [
+        lambda: StorageServer(),
+        lambda: connect("127.0.0.1", 1),
+        lambda: connect("127.0.0.1", 1, local_cache=True),
+        lambda: RemoteStorage(("127.0.0.1", 1)),
+        lambda: Fleet(n_sql=2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for tool in (benchkv, benchraw, benchdb):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main([])
 
 
 @pytest.mark.parametrize("mod", SERVER_SLICE)
@@ -148,6 +189,39 @@ srv.close()
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tidb_tpu"))))
 """
+
+
+# every module of the port imported, then a query through Fleet.client
+# (the client it hands a fleet's user) to the port's Server on the CPU
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import tidb_tpu_torch
+for m in pkgutil.walk_packages(tidb_tpu_torch.__path__, "tidb_tpu_torch."):
+    importlib.import_module(m.name)
+from tidb_tpu_torch.fleet import Fleet, SQLMember
+from tidb_tpu_torch.server import Server
+from tidb_tpu_torch.store.storage import new_mock_storage
+srv = Server(new_mock_storage(device="cpu"), port=0)
+srv.start()
+f = Fleet(n_sql=1, device="cpu")
+f.members = [SQLMember(0, None, srv.port, 0)]
+c = f.client(0)
+assert c.query("SELECT 1 + 1")[1] == [("2",)]
+c.close()
+srv.close()
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in
+                        ("jax", "jaxlib", "tidb_tpu", "tests"))))
+"""
+
+
+def test_every_module_and_the_fleet_client_load_no_reference_module():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_cpu_q1_loads_no_jax_module():

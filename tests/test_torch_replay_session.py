@@ -1,0 +1,7 @@
+"""The reference's `tests/test_session.py`, replayed against the port
+(`replay`: its source with the package pointed at `tidb_tpu_torch` and
+every storage on the CPU)."""
+
+from tests.test_torch_server import replay
+
+replay("test_session.py", globals())

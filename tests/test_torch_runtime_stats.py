@@ -6,9 +6,12 @@ Both packages load `ScaledTpch(sf=0.002, seed=42)` through
 ANALYZE of TPC-H Q1, Q3 and Q5 and of the subquery, UNION and cross
 join statements of this slice, with tidb_tpu_device_min_rows = 1 and
 tidb_tpu_superchunk_rows = 4096: the columns are the reference's, and
-per operator the id, est_rows, act_rows, loops and cop_tasks are equal
-(the times, memory, pipeline and kernel cells are measurements of each
-package). The root's act_rows equals the rows the statement returns;
+per operator the id, est_rows, act_rows, loops, cop_tasks and the
+pipeline cell's `Nsc/Mch fill=` part are equal (the times, memory, the
+pipeline cell's stall and the kernel cells are measurements of each
+package). HashAgg over a MergeJoin of two 6,000-row tables, the
+smallest input on which the port once recorded no superchunk, holds the
+same cell. The root's act_rows equals the rows the statement returns;
 the reader that pushes Q1's aggregate shows a kernel cell and, under
 `tidb_tpu_runtime_stats_device = 1`, a device time. The digest summary
 then carries the operators' rows.
@@ -57,9 +60,15 @@ def tpch_pair():
         st.close()
 
 
+def _pipeline(cell: str) -> str:
+    """The deterministic part of the pipeline cell: `Nsc/Mch fill=F`
+    (the stall after it is a wall-clock measurement)."""
+    return cell.split(" stall=")[0]
+
+
 def _counted(rows):
-    # id, est_rows, act_rows, loops, cop_tasks
-    return [(r[0], r[1], r[2], r[3], r[7]) for r in rows]
+    # id, est_rows, act_rows, loops, cop_tasks, superchunks and fill
+    return [(r[0], r[1], r[2], r[3], r[7], _pipeline(r[8])) for r in rows]
 
 
 @pytest.mark.parametrize("name", list(STATEMENTS))
@@ -72,6 +81,34 @@ def test_explain_analyze_equals_the_reference(tpch_pair, name):
     assert _counted(got.rows) == _counted(want.rows)
     assert got.rows[0][2] == len(psess.query(sql).rows)
     assert psess.last_mem_left == 0
+
+
+def test_superchunks_over_a_merge_join_equal_the_reference():
+    sql = ("EXPLAIN ANALYZE SELECT a.g, COUNT(*), SUM(b.w) FROM a JOIN b "
+           "ON a.id = b.id GROUP BY a.g")
+    cells = []
+    for sess in (JSession(jnew_storage()),
+                 PSession(pnew_storage(device="cpu"))):
+        sess.execute("CREATE DATABASE d")
+        sess.execute("USE d")
+        sess.execute("CREATE TABLE a (id BIGINT PRIMARY KEY, g BIGINT, "
+                     "v BIGINT)")
+        sess.execute("CREATE TABLE b (id BIGINT PRIMARY KEY, w BIGINT)")
+        for lo in range(0, 6000, 1000):
+            ids = range(lo, lo + 1000)
+            sess.execute("INSERT INTO a VALUES " + ",".join(
+                f"({i},{i % 7},{i})" for i in ids))
+            sess.execute("INSERT INTO b VALUES " + ",".join(
+                f"({i},{i})" for i in ids))
+        with sysvars({"tidb_tpu_device_min_rows": 1,
+                      "tidb_tpu_superchunk_rows": 1 << 18}):
+            rows = sess.query(sql).rows
+        cells.append([(r[0], _pipeline(r[8])) for r in rows])
+        sess.close()
+    want, got = cells
+    assert got == want
+    agg = [c for name, c in got if "HashAgg" in name]
+    assert agg == ["1sc/1ch fill=0.73"]
 
 
 def test_reader_kernel_and_device_time(tpch_pair):

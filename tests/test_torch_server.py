@@ -32,9 +32,28 @@ from tidb_tpu_torch.store.storage import new_mock_storage as p_storage
 ROOT = Path(__file__).resolve().parent.parent
 
 # the reference's test modules read with the package pointed at the port
-_TO_PORT = [(re.compile(r"\btidb_tpu\b(?!_torch)"), "tidb_tpu_torch"),
+# (not inside a LIKE pattern: `SHOW VARIABLES LIKE 'tidb_tpu%'` names the
+# sysvars both packages share) and every storage, store plane and fleet
+# made on the CPU
+_TO_PORT = [(re.compile(r"\btidb_tpu\b(?!_torch|%)"), "tidb_tpu_torch"),
             (re.compile(r"new_mock_storage\(\)"),
-             'new_mock_storage(device="cpu")')]
+             'new_mock_storage(device="cpu")'),
+            (re.compile(r"StorageServer\(\)"),
+             'StorageServer(device="cpu")'),
+            (re.compile(r'\bconnect\(("127\.0\.0\.1", [\w.]+)'
+                        r'(, local_cache=True)?\)'),
+             r'connect(\1\2, device="cpu")'),
+            (re.compile(r"\bFleet\(n_sql=(\d+)\)"),
+             r'Fleet(n_sql=\1, device="cpu")'),
+            (re.compile(r'("-m",\s*"tidb_tpu_torch\.store\.remote",)'),
+             r'\1 "--device", "cpu",')]
+
+
+def port_source(src: str) -> str:
+    """A reference test module's source as `replay` runs it."""
+    for rx, rep in _TO_PORT:
+        src = rx.sub(rep, src)
+    return src
 
 
 def replay(ref_file: str, namespace: dict, drop: dict | None = None,
@@ -52,9 +71,7 @@ def replay(ref_file: str, namespace: dict, drop: dict | None = None,
     for old, new in (subs or {}).items():
         assert old in src, old
         src = src.replace(old, new)
-    for rx, rep in _TO_PORT:
-        src = rx.sub(rep, src)
-    exec(compile(src, str(path), "exec"), namespace)
+    exec(compile(port_source(src), str(path), "exec"), namespace)
     for case in drop or {}:
         cls, _, meth = case.partition("::")
         if meth:
@@ -408,6 +425,29 @@ def test_cli_without_a_card_refuses_to_start():
     out, _ = proc.communicate(timeout=120)
     assert proc.returncode != 0
     assert "CUDA" in out and "MySQL protocol on" not in out
+
+
+def test_replay_points_modules_at_the_port_not_like_patterns():
+    src = ("from tidb_tpu.store import remote\n"
+           "log = logging.getLogger('tidb_tpu.server')\n"
+           "s.query(\"SHOW VARIABLES LIKE 'tidb_tpu%'\")\n"
+           "srv = StorageServer()\n"
+           "st = connect(\"127.0.0.1\", srv.port, local_cache=True)\n")
+    assert port_source(src) == (
+        "from tidb_tpu_torch.store import remote\n"
+        "log = logging.getLogger('tidb_tpu_torch.server')\n"
+        "s.query(\"SHOW VARIABLES LIKE 'tidb_tpu%'\")\n"
+        "srv = StorageServer(device=\"cpu\")\n"
+        "st = connect(\"127.0.0.1\", srv.port, local_cache=True, "
+        "device=\"cpu\")\n")
+
+
+def test_show_variables_lists_the_reference_names(conns):
+    jc, pc = conns
+    sql = "SHOW VARIABLES LIKE 'tidb_tpu%'"
+    want, got = jc.run(sql), pc.run(sql)
+    assert want[0] == got[0] == "rs"
+    assert [r[0] for r in got[2]] == [r[0] for r in want[2]]
 
 
 replay("test_server.py", globals())

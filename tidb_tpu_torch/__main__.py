@@ -9,10 +9,14 @@ TOML file < explicit CLI flags (`--set VAR=V` last).
 The store is an in-process mock TiKV store on the CUDA device, and the
 process refuses to start where there is none (it never falls back to the
 CPU by itself); `--device cpu` runs it on the CPU instead, the port's
-counterpart of the reference's JAX_PLATFORMS. The fleet's `storeserve`
-subcommand, `--store` and the member heartbeat are not ported, nor the
-XLA compile-cache report; `--mesh`/`--no-mesh` are accepted and logged:
-the port drives one device.
+counterpart of the reference's JAX_PLATFORMS. `python -m tidb_tpu_torch
+storeserve [--device ...]` runs the fleet's store plane
+(store/remote.serve_main); `--store HOST:PORT` makes this process a
+stateless SQL member over it, with its own chunk and HBM caches on its
+device. With the status server up, the process registers in the
+membership registry (member.py). The XLA compile-cache report is not
+ported; `--mesh`/`--no-mesh` are accepted and logged: the port drives
+one device.
 """
 
 from __future__ import annotations
@@ -58,12 +62,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slow-threshold-ms", type=int, default=None)
     p.add_argument("--set", action="append", default=[], metavar="VAR=V",
                    help="set a tidb_tpu_* sysvar (repeatable)")
+    p.add_argument("--store", default=None, metavar="HOST:PORT",
+                   help="connect to a store-plane server (fleet mode: "
+                        "this process is a stateless SQL server with "
+                        "its own coherent caches) instead of hosting an "
+                        "in-process store")
     return p
 
 
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "storeserve":
+        # store-plane server: one MVCCStore + TSO + region map behind
+        # the wire protocol, shared by N stateless SQL servers
+        from tidb_tpu_torch.store.remote import serve_main
+        return serve_main(argv[1:])
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=getattr(logging, args.log_level.upper(), logging.INFO),
@@ -115,9 +129,15 @@ def main(argv=None) -> int:
 
     from tidb_tpu_torch.server import Server
     from tidb_tpu_torch.server.status import StatusServer
-    from tidb_tpu_torch.store.storage import new_mock_storage
-
-    storage = new_mock_storage(device=device)
+    if args.store:
+        from tidb_tpu_torch.store.remote import connect
+        h, _, pt = args.store.rpartition(":")
+        storage = connect(h or "127.0.0.1", int(pt), local_cache=True,
+                          device=device)
+        log.info("fleet mode: store plane at %s", args.store)
+    else:
+        from tidb_tpu_torch.store.storage import new_mock_storage
+        storage = new_mock_storage(device=device)
     server = Server(storage, host=args.host, port=args.port,
                     token_limit=args.token_limit)
     server.start()
@@ -128,6 +148,13 @@ def main(argv=None) -> int:
                               port=args.status_port)
         status.start()
         log.info("status API on %s:%d", args.host, status.port)
+        # fleet membership (member.py): identity = the status port peers
+        # fan cluster_* queries out to. The heartbeat publishes through
+        # this process's storage: the shared store plane in fleet mode,
+        # the in-process store standalone
+        from tidb_tpu_torch import member
+        member.set_identity(args.host, status.port, "sql")
+        member.start_heartbeat(storage)
 
     stop = threading.Event()
 
@@ -139,6 +166,8 @@ def main(argv=None) -> int:
     stop.wait()
     log.info("shutting down")
     if status is not None:
+        from tidb_tpu_torch import member
+        member.stop_heartbeat()
         status.close()
     server.close()
     storage.close()

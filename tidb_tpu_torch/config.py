@@ -32,6 +32,8 @@ __all__ = ["get_var", "set_var", "session_overlay", "current_overlay",
            "kernel_profile_cap", "device_enabled", "slow_query_ms",
            "server_mem_quota", "admission_timeout_ms", "stmt_profile_cap",
            "metrics_history_interval_ms", "metrics_history_points",
+           "fleet_local_cache", "member_heartbeat_ms", "member_ttl_ms",
+           "cluster_fetch_timeout_ms",
            "runtime_stats_enabled", "runtime_stats_device", "trace_sample",
            "slow_trace_ms", "trace_log", "failpoints_spec", "on_change",
            "is_global_only", "all_vars", "is_known", "coerce",
@@ -75,6 +77,17 @@ _DEFS: dict[str, tuple[str, int]] = {
     "tidb_tpu_delta_merge_ratio_pct": (_INT, 25),
     # journal kept behind now by a merge, wall-clock ms (0 = none)
     "tidb_tpu_delta_retain_ms": (_INT, 0),
+    # fleet SQL servers serve coprocessor reads from their own chunk +
+    # HBM caches, kept coherent by journal-window pulls from the store
+    # plane (store/fleetcop.py); 0 = every remote read executes on the
+    # store plane
+    "tidb_tpu_fleet_local_cache": (_BOOL, 1),
+    # rows above which the mesh executors stream a table in batches
+    # instead of keeping it resident (the reference's executor/mesh.py);
+    # read only by the multi-device plane, which is not ported, and the
+    # reference leaves it unread on one device too. Listed so the same
+    # SET and SHOW VARIABLES run against both packages.
+    "tidb_tpu_stream_rows": (_INT, 1 << 23),
     # min chunk rows before an executor pays a device dispatch
     "tidb_tpu_device_min_rows": (_INT, 2048),
     # rows per coalesced device batch (ops/runtime.superchunk_batches); a
@@ -161,6 +174,16 @@ _DEFS: dict[str, tuple[str, int]] = {
     "tidb_tpu_metrics_history_interval_ms": (_INT, 1000),
     # metrics-history ring capacity in points
     "tidb_tpu_metrics_history_points": (_INT, 512),
+    # fleet membership registry (member.py): every server process
+    # republishes its ephemeral heartbeat record this often...
+    "tidb_tpu_member_heartbeat_ms": (_INT, 1000),
+    # ...and a record not rebeaten within this window is dead: it drops
+    # from information_schema.cluster_members and the cluster fan-out
+    "tidb_tpu_member_ttl_ms": (_INT, 3000),
+    # per-member HTTP budget of the cluster_* / /fleet/* fan-out
+    # (util/statusclient.fetch_all): an unreachable member costs at most
+    # this long and degrades to a warning, never a statement error
+    "tidb_tpu_cluster_fetch_timeout_ms": (_INT, 2000),
     # failpoint arming (util/failpoint.py): "name=spec;name=spec" over
     # the declared registry. Declarative: a write arms the listed points
     # and disarms what a previous write armed. GLOBAL scope only
@@ -431,6 +454,22 @@ def metrics_history_interval_ms() -> int:
 
 def metrics_history_points() -> int:
     return min(max(16, _read("tidb_tpu_metrics_history_points")), 1 << 16)
+
+
+def fleet_local_cache() -> bool:
+    return bool(_read("tidb_tpu_fleet_local_cache"))
+
+
+def member_heartbeat_ms() -> int:
+    return max(100, _read("tidb_tpu_member_heartbeat_ms"))
+
+
+def member_ttl_ms() -> int:
+    return max(200, _read("tidb_tpu_member_ttl_ms"))
+
+
+def cluster_fetch_timeout_ms() -> int:
+    return max(100, _read("tidb_tpu_cluster_fetch_timeout_ms"))
 
 
 def runtime_stats_enabled() -> bool:

@@ -166,21 +166,24 @@ def superchunk_partials(chunks, filter_expr, group_exprs, aggs,
         stats.note_fallback("unsupported")
     min_rows = config.device_min_rows()
 
-    def dispatch(k, chunk):
-        if k is None or chunk.num_rows < min_rows:
+    def dispatch(k, sc):
+        if k is None or sc.num_rows < min_rows:
             return None      # host path at finalize
-        tok = k.dispatch(chunk)
+        tok = k.dispatch(sc.chunk)
         profiler.note_bytes(profiler.profile_of(k),
-                            nbytes=k.dispatch_nbytes(chunk))
+                            nbytes=k.dispatch_nbytes(sc.chunk))
+        if op is not None:
+            runtime_stats.note_superchunk(op, sc.num_rows, sc.bucket,
+                                          sc.sources)
         return tok
 
-    def finalize(k, chunk, pending):
+    def finalize(k, sc, pending):
         if pending is None:
             stats.host_batches += 1
-            return _host_agg(chunk, filter_expr, group_exprs, aggs)
+            return _host_agg(sc.chunk, filter_expr, group_exprs, aggs)
         t0 = time.perf_counter_ns()
         try:
-            gr = k.finalize(chunk, pending)
+            gr = k.finalize(sc.chunk, pending)
         finally:
             if op is not None:
                 runtime_stats.note_finalize_wait(
@@ -189,9 +192,9 @@ def superchunk_partials(chunks, filter_expr, group_exprs, aggs,
         return gr
 
     def counted(batches):
-        for chunk in batches:
+        for sc in batches:
             stats.superchunks += 1
-            yield chunk
+            yield sc
 
     return escalating_pipeline(
         counted(runtime.superchunk_batches(chunks, config.superchunk_rows(),
@@ -199,7 +202,7 @@ def superchunk_partials(chunks, filter_expr, group_exprs, aggs,
         kernel, dispatch, finalize,
         lambda e: _escalated_kernel(e, filter_expr, group_exprs, aggs,
                                     ctx.device),
-        lambda chunk, _pending, reason: on_miss(chunk, reason), stats)
+        lambda sc, _pending, reason: on_miss(sc.chunk, reason), stats)
 
 
 def run_agg(chunks, filter_expr, group_exprs, aggs, device=None,
@@ -452,35 +455,36 @@ class HashAgg:
         def dispatch(k, sc):
             nonlocal build_dev
             n = sc.num_rows
-            pk = join._probe_keys(enc, sc)
+            pk = join._probe_keys(enc, sc.chunk)
             if n < min_rows and nb < join._DEVICE_MIN_BUILD:
                 return ("host", pk)
             if build_dev is None:
                 # build lanes stay device-resident for the whole probe
                 build_dev = k.prepare_build(build, bk, nb)
             stats.fused_dispatches += 1
-            tok = k.dispatch(build_dev, nb, pk, sc, n)
+            tok = k.dispatch(build_dev, nb, pk, sc.chunk, n)
             # the probe superchunk's padded upload: the kernel has no
             # scratch sizing of its own yet
             profiler.note_bytes(profiler.profile_of(k),
-                                nbytes=memtrack.device_put_bytes(sc))
+                                nbytes=memtrack.device_put_bytes(sc.chunk))
+            runtime_stats.note_superchunk(self, n, sc.bucket, sc.sources)
             return pk, tok
 
         def finalize(k, sc, tok):
             if isinstance(tok[0], str):
                 stats.host_batches += 1
-                return decoded_batch(tok[1], sc)
+                return decoded_batch(tok[1], sc.chunk)
             pk, pend = tok
             t0 = time.perf_counter_ns()
             try:
-                return k.finalize(sc, build, nb, pend)
+                return k.finalize(sc.chunk, build, nb, pend)
             finally:
                 runtime_stats.note_finalize_wait(
                     self, time.perf_counter_ns() - t0)
 
         def on_miss(sc, tok, reason):
             stats.note_fallback(reason)
-            return decoded_batch(tok[0], sc)
+            return decoded_batch(tok[0], sc.chunk)
 
         try:
             yield from escalating_pipeline(
@@ -589,8 +593,8 @@ class StreamAgg:
             if use_device and config.superchunk_rows():
                 source = self._pipelined_segments(ctx, device, parts)
             else:
-                source = (self._feed(ctx, device, part, use_device)
-                          for part in parts)
+                source = (self._feed(ctx, device, sc.chunk, use_device)
+                          for sc in parts)
             for gr in source:
                 agg.update(gr)
                 tracked = memtrack.track_to(self, agg.approx_bytes(),
@@ -640,37 +644,42 @@ class StreamAgg:
         min_rows = config.device_min_rows()
         self._kernel_for(ctx, device)
 
-        def dispatch(part):
+        def dispatch(sc):
             stats.superchunks += 1
             k = self._kernel
-            if k is None or part.num_rows < min_rows:
+            if k is None or sc.num_rows < min_rows:
                 return None
-            db = k.dispatch_nbytes(part)
+            db = k.dispatch_nbytes(sc.chunk)
             memtrack.consume(self, device=db)
             try:
-                tok = k, k.dispatch(part), db
+                tok = k, k.dispatch(sc.chunk), db
             except BaseException:
                 memtrack.release(self, device=db)
                 raise
             profiler.note_bytes(profiler.profile_of(k), nbytes=db)
+            runtime_stats.note_superchunk(self, sc.num_rows, sc.bucket,
+                                          sc.sources)
             return tok
 
-        def finalize(part, tok):
+        def finalize(sc, tok):
             if tok is None:
-                return self._host_part(ctx, part)
+                return self._host_part(ctx, sc.chunk)
             k, pending, db = tok
+            t0 = time.perf_counter_ns()
             try:
-                gr = k.finalize(part, pending)
+                gr = k.finalize(sc.chunk, pending)
             finally:
                 memtrack.release(self, device=db)
+                runtime_stats.note_finalize_wait(
+                    self, time.perf_counter_ns() - t0)
             stats.device_batches += 1
             return gr
 
-        return runtime.pipeline_map(parts, dispatch, finalize,
-                                    config.pipeline_depth(),
-                                    tracker=memtrack.op_node(self),
-                                    cost=memtrack.chunk_bytes,
-                                    profile=profiler.profile_of(self._kernel))
+        return runtime.pipeline_map(
+            parts, dispatch, finalize, config.pipeline_depth(),
+            tracker=memtrack.op_node(self),
+            cost=lambda sc: memtrack.chunk_bytes(sc.chunk),
+            profile=profiler.profile_of(self._kernel))
 
 
 # beyond this many estimated groups the sort-based StreamAgg beats the

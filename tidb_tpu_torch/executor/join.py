@@ -41,9 +41,12 @@ Left out: the mesh shuffle kernel (the multi-device plane).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
-from tidb_tpu_torch import config, kv, memtrack, sched, tablecodec
+from tidb_tpu_torch import (config, kv, memtrack, runtime_stats, sched,
+                            tablecodec)
 from tidb_tpu_torch import ranger as rg
 from tidb_tpu_torch.chunk import Chunk, Column
 from tidb_tpu_torch.executor.reader import txn_is_dirty
@@ -408,18 +411,22 @@ class HashJoin:
 
         def finalize_one(t):
             p, rows, tok, db = t
+            t0 = time.perf_counter_ns()
             try:
                 li_l, ri_l = kernel.finalize(tok)
             finally:
                 hyb.unpin(p)
                 memtrack.release(self, device=db)
+                runtime_stats.note_finalize_wait(
+                    self, time.perf_counter_ns() - t0)
             return li_l, rows[ri_l]
 
         pending_promo: list = [None]
         open_states: dict = {}      # id -> state; bytes held to emission
 
         def task_iter(sc_iter):
-            for sc in sc_iter:
+            for sup in sc_iter:
+                sc = sup.chunk
                 # apply the promotion observed on the PREVIOUS batch: all
                 # of its tasks have dispatched by now, so no routed but
                 # undispatched task can straddle the re-layout
@@ -454,6 +461,8 @@ class HashJoin:
                          "mask": staged_mask, "li": [], "ri": [],
                          "left": max(len(imm), 1), "bytes": sb}
                 open_states[id(state)] = state
+                runtime_stats.note_superchunk(self, n, sup.bucket,
+                                              sup.sources)
                 if not imm:
                     # every row staged or unmatched: one sentinel task
                     # still flows through so the emission fires
@@ -563,7 +572,7 @@ class HashJoin:
         def dispatch(sc):
             nonlocal build_dev, build_db
             n = sc.num_rows
-            pk = self._probe_keys(enc, sc)
+            pk = self._probe_keys(enc, sc.chunk)
             if n < self._DEVICE_MIN_PROBE and nb < self._DEVICE_MIN_BUILD:
                 stats.host_match_batches += 1
                 return ("host", host_match_pairs(bk, pk, nb, n), 0)
@@ -581,6 +590,7 @@ class HashJoin:
                 memtrack.release(self, device=db)
                 raise
             stats.join_dispatches += 1
+            runtime_stats.note_superchunk(self, n, sc.bucket, sc.sources)
             return ("dev", tok, db)
 
         def finalize(sc, tok):
@@ -588,10 +598,13 @@ class HashJoin:
             if kind == "host":
                 li, ri = payload
             else:
+                t0 = time.perf_counter_ns()
                 try:
                     li, ri = kernel.finalize(payload)
                 finally:
                     memtrack.release(self, device=db)
+                    runtime_stats.note_finalize_wait(
+                        self, time.perf_counter_ns() - t0)
             return sc, li, ri
 
         sc_iter = op_runtime.superchunk_batches(probe_iter,
@@ -600,8 +613,9 @@ class HashJoin:
         try:
             for sc, li, ri in op_runtime.pipeline_map(
                     sc_iter, dispatch, finalize, config.pipeline_depth(),
-                    tracker=mt_node, cost=memtrack.chunk_bytes):
-                yield from self._post_match(sc, build, li, ri,
+                    tracker=mt_node,
+                    cost=lambda sc: memtrack.chunk_bytes(sc.chunk)):
+                yield from self._post_match(sc.chunk, build, li, ri,
                                             matched_build)
         finally:
             if build_db:

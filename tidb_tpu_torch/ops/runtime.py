@@ -24,7 +24,7 @@ from tidb_tpu_torch.expression import Expression
 __all__ = ["bucket_size", "pad_column", "put_lanes", "device_put_chunk",
            "resolve_device", "eval_filter_host", "filter_mask_xp",
            "note_put", "put_bytes",
-           "MIN_BUCKET", "superchunk_batches",
+           "MIN_BUCKET", "Superchunk", "superchunk_batches",
            "pipeline_map", "FingerprintCache", "plan_fingerprint"]
 
 MIN_BUCKET = 1024
@@ -58,19 +58,46 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+class Superchunk:
+    """One coalesced batch: a chunk re-assembled from `sources` storage
+    chunks, destined for a single padded-bucket device dispatch.
+    `sources` counts the chunks that contributed rows to this batch (a
+    chunk spanning a coalesce boundary counts in each superchunk it
+    touches). The fill ratio (rows over the padded bucket) is the share
+    of device work spent on live rows, which EXPLAIN ANALYZE shows."""
+
+    __slots__ = ("chunk", "sources")
+
+    def __init__(self, chunk: Chunk, sources: int):
+        self.chunk = chunk
+        self.sources = sources
+
+    @property
+    def num_rows(self) -> int:
+        return self.chunk.num_rows
+
+    @property
+    def bucket(self) -> int:
+        return bucket_size(self.chunk.num_rows)
+
+    @property
+    def fill(self) -> float:
+        return self.chunk.num_rows / self.bucket
+
+
 def superchunk_batches(chunks, limit: int, tracker=None):
-    """Coalesce a chunk stream into ~limit-row superchunks: device
+    """Coalesce a chunk stream into ~limit-row Superchunks: device
     dispatches stay large while host memory stays O(limit). Oversize
     chunks are sliced; 0-row chunks fold away. A chunk that is exactly
-    one superchunk passes through as the same object, so its device memo
-    (device_put_chunk) serves the next run over it.
+    one superchunk passes through as the same object (`Superchunk.chunk`),
+    so its device memo (device_put_chunk) serves the next run over it.
 
     `tracker` (a memtrack.MemTracker) accounts the assembly buffer: bytes
     are held while chunks wait in it and credited back when the
     superchunk is yielded (ownership passes to the consumer)."""
     from tidb_tpu_torch import memtrack
     limit = max(int(limit), 1)    # a 0/negative sysvar must not hang
-    buf, total, staged = [], 0, 0
+    buf, total, srcs, staged = [], 0, 0, 0
 
     def emit():
         nonlocal staged
@@ -78,10 +105,13 @@ def superchunk_batches(chunks, limit: int, tracker=None):
         if tracker is not None and staged:
             tracker.release(host=staged)
             staged = 0
-        return big
+        return Superchunk(big, srcs) if big is not None else None
 
     try:
         for c in chunks:
+            if c.num_rows == 0:
+                continue
+            srcs += 1
             start = 0
             while start < c.num_rows:
                 take = min(c.num_rows - start, limit - total)
@@ -95,10 +125,15 @@ def superchunk_batches(chunks, limit: int, tracker=None):
                 total += take
                 start += take
                 if total >= limit:
-                    yield emit()
-                    buf, total = [], 0
+                    sc = emit()
+                    if sc is not None:
+                        yield sc
+                    buf, total, srcs = [], 0, \
+                        1 if start < c.num_rows else 0
         if buf:
-            yield emit()
+            sc = emit()
+            if sc is not None:
+                yield sc
     finally:
         # abandoned or raised mid-assembly: what still sits in the
         # buffer was never handed to a consumer

@@ -36,12 +36,18 @@ from pathlib import Path
 import torch
 
 __all__ = ["segment_sum", "segment_sum_plain", "build", "launches",
+           "shape_launches",
            "launch_plan", "plan_for", "DeviceLimits", "LaunchPlan", "H100"]
 
 # kernel launches by segment_sum since the last reset (a plain int: the
 # caller sets it to 0 and reads it back around the run it attributes;
 # the coprocessor's pool threads add under _count_mu)
 launches = 0
+# kernel launches by shape since the process started, keyed as
+# benchmarks/segsum_bench.record_calls keys a call: (rows[, lanes], C,
+# dtype, mask). A fleet member serves them on its status port (/status),
+# the one place its launches can be read from outside the process
+shape_launches: dict = {}
 _count_mu = threading.Lock()
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -381,6 +387,11 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
                 out.data_ptr(), n, k, num_segments, stream, plan.window,
                 plan.tile, plan.threads, plan.grid(n), plan.smem)
         _check(lib, rc, "kernel launch")
+        key = (*values.shape, num_segments,
+               str(values.dtype).removeprefix("torch."),
+               "none" if valid is None else
+               "lane" if valid.shape == values.shape else "row")
         with _count_mu:
             launches += 1
+            shape_launches[key] = shape_launches.get(key, 0) + 1
     return out[:, 0] if one_d else out

@@ -1,12 +1,12 @@
 """Rule-based planner: AST -> physical plan with storage pushdown.
 
-The port's copy of the JAX package's plan/planner.py, with two cuts: no
+The port's copy of the JAX package's plan/planner.py, with one cut: no
 mesh pass (on one device the reference's route_mesh returns the plan
-unchanged; the multi-device plane is not ported), and the cluster_*
-memtables, which fan out over the fleet's membership plane, raise "not
-ported yet". The information_schema observability memtables read
-memtrack, the meter, the trace ring, the profiler and perfschema's
-mode memo; the performance_schema memtables read perfschema.py.
+unchanged; the multi-device plane is not ported). The information_schema
+observability memtables read memtrack, the meter, the trace ring, the
+profiler and perfschema's mode memo; the cluster_* memtables fan out
+over the fleet's membership plane (member.py, util/statusclient.py);
+the performance_schema memtables read perfschema.py.
 
 Reference: TiDB's plan/ — logical build (logical_plan_builder.go),
 rule-based optimization {columnPruner, ppdSolver, aggregationOptimizer,
@@ -24,7 +24,6 @@ split (plan/task.go:116-499). Rules here run during construction:
 from __future__ import annotations
 
 from tidb_tpu_torch import sqltypes as st
-from tidb_tpu_torch.errcode import not_ported
 from tidb_tpu_torch.expression import (AggDesc, AggFunc, ColumnRef, Constant,
                                  Expression, Op, ScalarFunc, and_all, func)
 from tidb_tpu_torch.parser import ast
@@ -202,12 +201,10 @@ class Planner:
     _MEMTABLES = ("schemata", "tables", "columns", "statistics",
                   "character_sets", "collations", "memory_usage",
                   "statement_traces", "resource_usage",
-                  "kernel_profile", "statement_profile")
-    # the reference's memtables over the fleet's membership plane
-    _UNPORTED_MEMTABLES = ("cluster_members", "cluster_processlist",
-                           "cluster_resource_usage",
-                           "cluster_statement_traces",
-                           "cluster_kernel_profile")
+                  "kernel_profile", "statement_profile",
+                  "cluster_members", "cluster_processlist",
+                  "cluster_resource_usage", "cluster_statement_traces",
+                  "cluster_kernel_profile")
 
     def _build_memtable(self, ts: ast.TableSource) -> ph.PhysValues:
         """Serve catalog metadata as constant rows computed from the
@@ -217,8 +214,8 @@ class Planner:
         from tidb_tpu_torch.sqltypes import (new_int_field, new_string_field)
         name = ts.name.lower()
         alias = ts.ref_name.lower()
-        if name in self._UNPORTED_MEMTABLES:
-            raise PlanError(not_ported(f"information_schema.{name}"))
+        if name.startswith("cluster_") and name in self._MEMTABLES:
+            return self._build_cluster_table(name, alias)
         sf, intf = new_string_field(64), new_int_field()
 
         def mk(cols_spec, rows):
@@ -439,6 +436,172 @@ class Planner:
         raise PlanError(
             f"Unknown table 'information_schema.{ts.name}' "
             f"(available: {', '.join(self._MEMTABLES)})")
+
+    # -- INFORMATION_SCHEMA cluster_* tables (ref: infoschema/tables.go
+    # CLUSTER_* wrappers over the infosync membership) -----------------------
+
+    def _live_members(self) -> list[dict]:
+        """The membership registry, degraded to this process alone when
+        there is no registry to scan (no storage bound, nothing
+        heartbeating, or the store plane is unreachable — the last
+        case also leaves a warning)."""
+        from tidb_tpu_torch import member
+        members: list[dict] = []
+        if self.storage is not None:
+            try:
+                members = member.live_members(self.storage)
+            except Exception as e:  # noqa: BLE001 - degrade, never error
+                self.warnings.append((
+                    "Warning", 1105,
+                    f"cluster membership scan failed ({e}); showing "
+                    f"this member only"))
+        return members or [member.identity()]
+
+    def _cluster_docs(self) -> dict:
+        """Every live member's /cluster/state document, keyed by member
+        id — one bounded concurrent sweep (statusclient.fetch_all). An
+        unreachable member contributes a SHOW WARNINGS row instead of
+        rows; a registry of one local-placeholder member (no fleet) is
+        served in-process without HTTP."""
+        from tidb_tpu_torch import member
+        members = self._live_members()
+        if len(members) == 1 and \
+                members[0]["id"] == member.identity()["id"]:
+            doc = member.local_state()
+            return {doc["member"]["id"]: doc}
+        from tidb_tpu_torch.util import statusclient
+        docs, errors = statusclient.fetch_all(members, "/cluster/state")
+        for mid, err in sorted(errors.items()):
+            self.warnings.append((
+                "Warning", 1105,
+                f"cluster fan-out: member {mid} unreachable ({err}); "
+                f"results are partial"))
+        return docs
+
+    def _build_cluster_table(self, name: str, alias: str) \
+            -> ph.PhysValues:
+        """CLUSTER_* memtables: the fleet-wide twins of the local
+        memtables, built by fanning one /cluster/state fetch out over
+        every live member. Queryable from ANY member; an unreachable
+        member costs at most one bounded timeout and one warning — the
+        query returns the members that answered, never an error."""
+        from tidb_tpu_torch.sqltypes import new_int_field, new_string_field
+        sf, intf = new_string_field(64), new_int_field()
+
+        def mk(cols_spec, rows):
+            schema = PlanSchema([SchemaCol(n, alias, ft)
+                                 for n, ft in cols_spec])
+            const_rows = [[Constant(v, ft)
+                           for v, (_n, ft) in zip(r, cols_spec)]
+                          for r in rows]
+            pv = ph.PhysValues(schema=schema, rows=const_rows)
+            # membership and peer state move with no schema-version
+            # bump: a cached plan would serve a frozen fleet forever
+            pv.cacheable = False
+            return pv
+
+        if name == "cluster_members":
+            # registry-only: one snapshot range scan, no HTTP fan-out
+            rows = [(m["id"], m["host"], m["status_port"], m["role"],
+                     int(m["start_unix"] * 1e6), m.get("expiry", 0))
+                    for m in self._live_members()]
+            return mk([("member_id", sf), ("host", sf),
+                       ("status_port", intf), ("role", sf),
+                       ("start_time_us", intf),
+                       ("lease_expiry_ms", intf)], rows)
+        docs = self._cluster_docs()
+        if name == "cluster_processlist":
+            rows = []
+            for mid, doc in sorted(docs.items()):
+                for p in doc.get("processlist", ()):
+                    rows.append((mid, p["id"], p["user"], p["host"],
+                                 p["db"], p["command"],
+                                 int(p["time_s"]), p["info"],
+                                 p["mem_bytes"], int(p["device_ms"]),
+                                 p["rows_sent"]))
+            return mk([("member", sf), ("id", intf), ("user", sf),
+                       ("host", sf), ("db", sf), ("command", sf),
+                       ("time", intf), ("info", new_string_field(100)),
+                       ("mem_bytes", intf), ("device_ms", intf),
+                       ("rows_sent", intf)], rows)
+        if name == "cluster_resource_usage":
+            rows = []
+
+            def ru_row(mid, scope, snap):
+                iv = snap["interval"]
+                rows.append((mid, scope, snap["session_id"],
+                             snap["user"] or None, snap["statements"],
+                             snap["device_ns"], iv["device_ns"],
+                             snap["host_fallback_ns"],
+                             snap["slot_wait_ns"],
+                             snap["admission_wait_ns"],
+                             snap["rows_sent"], snap["bytes_encoded"],
+                             snap["bytes_decoded_equiv"]))
+
+            for mid, doc in sorted(docs.items()):
+                ru = doc.get("resource_usage") or {}
+                if ru.get("server"):
+                    ru_row(mid, "server", ru["server"])
+                for snap in ru.get("users", ()):
+                    ru_row(mid, "user", snap)
+                for snap in ru.get("sessions", ()):
+                    ru_row(mid, "session", snap)
+            return mk([("member", sf), ("scope", sf),
+                       ("session_id", intf), ("user", sf),
+                       ("statements", intf), ("device_time_ns", intf),
+                       ("device_time_interval_ns", intf),
+                       ("host_fallback_ns", intf),
+                       ("slot_wait_ns", intf),
+                       ("admission_wait_ns", intf),
+                       ("rows_sent", intf), ("bytes_encoded", intf),
+                       ("bytes_decoded_equiv", intf)], rows)
+        if name == "cluster_kernel_profile":
+            # fleet-wide kernel profiles: every member's registry rows
+            # with the member id prefixed — the per-mesh keying makes a
+            # 1-chip member and an 8-chip member distinguishable even
+            # for the same plan fingerprint
+            from tidb_tpu_torch.sqltypes import new_double_field
+            df = new_double_field()
+            rows = []
+            for mid, doc in sorted(docs.items()):
+                for p in doc.get("kernel_profile", ()):
+                    rows.append((mid, p["family"], p["fingerprint"],
+                                 p["mesh"], p["generation"],
+                                 p["compiles"], p["compile_ns"],
+                                 p["compile_cache"], p["reuses"],
+                                 p["dispatches"], p["busy_ns"],
+                                 p["bytes_in"], p["bytes_out"],
+                                 p["escalations"], p["fallbacks"],
+                                 p["achieved_gbps"],
+                                 p["roofline_fraction"]))
+            return mk([("member", sf), ("family", sf),
+                       ("fingerprint", sf), ("mesh", sf),
+                       ("generation", intf), ("compiles", intf),
+                       ("compile_ns", intf), ("compile_cache", sf),
+                       ("reuses", intf), ("dispatches", intf),
+                       ("busy_ns", intf), ("bytes_in", intf),
+                       ("bytes_out", intf), ("escalations", intf),
+                       ("fallbacks", intf), ("achieved_gbps", df),
+                       ("roofline_fraction", df)], rows)
+        # cluster_statement_traces: every member's retained trace ring,
+        # with the origin stamps that stitch a store-plane record back
+        # to the fleet trace id of the SQL member that issued it
+        rows = []
+        for mid, doc in sorted(docs.items()):
+            for r in doc.get("traces", ()):
+                rows.append((mid, r["trace_id"],
+                             r.get("origin_trace_id", r["trace_id"]),
+                             r.get("origin_member", ""), r["digest"],
+                             r["sql"][:256],
+                             int(r["start_unix"] * 1e6),
+                             r["duration_ns"], r["span_count"],
+                             r["reason"], r["error"]))
+        return mk([("member", sf), ("trace_id", intf),
+                   ("origin_trace_id", intf), ("origin_member", sf),
+                   ("digest", sf), ("sql_text", new_string_field(256)),
+                   ("start_time_us", intf), ("duration_ns", intf),
+                   ("span_count", intf), ("reason", sf),
+                   ("error", sf)], rows)
 
     # -- PERFORMANCE_SCHEMA virtual tables (ref: perfschema/const.go:120-298
     # events_statements_current / events_statements_history) -----------------

@@ -8,10 +8,16 @@ debug API. Ref: server/http_status.go (the :10080 admin API) and
 server/region_handler.go:73-91 (table regions, MVCC forensics by key and
 by start_ts).
 
-The reference's fleet routes (/cluster/state, /fleet/*, /fleet/trace)
-read the membership registry, which is not ported: they answer 404, as
-any unknown path does. /metrics carries no member identity stamp, and
-/status and /profile no XLA compile-cache counters."""
+The fleet routes read the membership registry (member.py):
+/cluster/state serves this member's state document, /fleet/top and
+/fleet/trace/<id> fan out over the live members. /metrics carries the
+member identity stamp. /status also counts the segment-sum kernel's
+launches in this process, in all and by shape (`segsum_launches`,
+`segsum_shapes`: ops/segsum.launches, shape_launches), and the
+host->device bytes it staged (`h2d_bytes`, ops/runtime.put_bytes) and
+its chunk cache's hits and misses, so a fleet's members each show that
+the hand kernel ran in them and what a hot or a patched run moved.
+/status and /profile carry no XLA compile-cache counters."""
 
 from __future__ import annotations
 
@@ -49,6 +55,15 @@ def _all_regions(storage) -> list:
     cluster = storage.cluster
     fn = getattr(cluster, "all_regions", None)
     return fn() if fn is not None else []
+
+
+def _cache_counts(storage) -> dict | None:
+    """The storage's columnar chunk cache hits and misses (a fleet SQL
+    member's own cache; None where the storage keeps none)."""
+    cache = getattr(storage, "chunk_cache", None)
+    if cache is None:
+        return None
+    return {"hits": cache.hits, "misses": cache.misses}
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -93,6 +108,14 @@ class _Handler(BaseHTTPRequestHandler):
         out["handle"] = handle
         return out
 
+    def _fleet_members(self) -> list[dict]:
+        """Live fleet membership, degraded to just this process when
+        the registry is empty (standalone in-process servers are a
+        one-member fleet)."""
+        from tidb_tpu_torch import member
+        members = member.live_members(self.server.ctx_storage)
+        return members or [member.identity()]
+
     # -- dispatch ------------------------------------------------------------
 
     def do_GET(self):  # noqa: N802 - stdlib API
@@ -100,7 +123,21 @@ class _Handler(BaseHTTPRequestHandler):
         parts = [p for p in self.path.split("/") if p]
         try:
             if self.path == "/metrics":
-                body = metrics.expose().encode()
+                from tidb_tpu_torch import member
+                ident = member.identity()
+                # member identity stamp, hand-rendered: the id is
+                # per-process (exactly what the cardinality rule keeps
+                # out of the registry), but ONE series per exposition
+                # makes multi-member scrapes joinable
+                stamp = (
+                    f"# HELP {metrics.MEMBER_START_TIME} This member's "
+                    f"process start time (unix seconds).\n"
+                    f"# TYPE {metrics.MEMBER_START_TIME} gauge\n"
+                    f"{metrics.MEMBER_START_TIME}"
+                    f"{{member=\"{ident['id']}\","
+                    f"role=\"{ident['role']}\"}} "
+                    f"{ident['start_unix']:.3f}\n")
+                body = (stamp + metrics.expose()).encode()
                 self.send_response(200)
                 self.send_header("Content-Type",
                                  "text/plain; version=0.0.4")
@@ -109,17 +146,60 @@ class _Handler(BaseHTTPRequestHandler):
                 self.wfile.write(body)
                 return
             if self.path in ("/", "/status"):
-                from tidb_tpu_torch import profiler, sched
+                from tidb_tpu_torch import member, profiler, sched
+                from tidb_tpu_torch.ops import runtime, segsum
                 self._json({
                     "version": __version__,
+                    "member": member.identity(),
                     "connections": len(getattr(self.server.ctx_server,
                                                "_conns", ())),
                     "regions": len(_all_regions(st)),
                     "serving": sched.stats(),
                     "kernel_profile": profiler.stats(),
+                    "segsum_launches": segsum.launches,
+                    "segsum_shapes": [
+                        [list(k), n] for k, n in sorted(
+                            dict(segsum.shape_launches).items(), key=str)],
+                    "h2d_bytes": runtime.put_bytes(),
+                    "chunk_cache": _cache_counts(st),
                     "metrics": metrics.snapshot(),
                 })
                 return
+            if self.path == "/cluster/state":
+                # this member's cluster-state document — the one fetch
+                # peers' cluster_* memtables and /fleet/* fan-outs make
+                from tidb_tpu_torch import member
+                self._json(member.local_state())
+                return
+            if parts and parts[0] == "fleet":
+                # fleet-wide views from ANY member: fan out over the
+                # live membership with the shared bounded-timeout
+                # client; unreachable members land in "errors"
+                from tidb_tpu_torch.util import statusclient
+                members = self._fleet_members()
+                if parts[1:] == ["top"]:
+                    docs, errors = statusclient.fetch_all(members,
+                                                          "/top")
+                    self._json({"members": docs, "errors": errors})
+                    return
+                if len(parts) == 3 and parts[1] == "trace":
+                    tid = int(parts[2])
+                    docs, errors = statusclient.fetch_all(
+                        members, "/cluster/state")
+                    hits = []
+                    for mid, doc in sorted(docs.items()):
+                        for rec in doc.get("traces", ()):
+                            if rec.get("trace_id") == tid or \
+                                    rec.get("origin_trace_id") == tid:
+                                hits.append(dict(rec, member=mid))
+                    from tidb_tpu_torch import trace
+                    local = trace.ring_get(tid)
+                    code = 200 if hits else 404
+                    self._json({"trace_id": tid, "found": hits,
+                                "spans": trace.tree(local["root"])
+                                if local is not None else None,
+                                "errors": errors}, code)
+                    return
             if self.path == "/profile":
                 # the kernel profiling plane (profiler.py): per-kernel
                 # compile/dispatch/roofline rows, the compile-cache

@@ -745,11 +745,12 @@ class Session:
             meter.finish_statement(sm, digest, norm)
             if coll is not None:
                 for o in coll.ops():
-                    if o.loops:
-                        metrics.histogram(metrics.OP_DURATIONS,
-                                          o.time_ns / 1e9, {"op": o.name})
-                        metrics.counter(metrics.OP_ROWS, {"op": o.name},
-                                        inc=o.act_rows)
+                    if not o.loops:
+                        continue   # never produced (cached sub-plan)
+                    metrics.histogram(metrics.OP_DURATIONS,
+                                      o.time_ns / 1e9, {"op": o.name})
+                    metrics.counter(metrics.OP_ROWS, {"op": o.name},
+                                    inc=o.act_rows)
                     if o.device_time_ns:
                         metrics.histogram(metrics.OP_DEVICE_DURATIONS,
                                           o.device_time_ns / 1e9,
@@ -757,6 +758,19 @@ class Session:
                     if o.superchunks:
                         metrics.counter(metrics.SUPERCHUNKS, {"op": o.name},
                                         inc=o.superchunks)
+                        metrics.counter(metrics.SUPERCHUNK_SOURCES,
+                                        {"op": o.name},
+                                        inc=o.coalesced_chunks)
+                        metrics.counter(metrics.SUPERCHUNK_FILL_ROWS,
+                                        {"op": o.name},
+                                        inc=o.superchunk_fill_rows)
+                        metrics.counter(metrics.SUPERCHUNK_BUCKET_ROWS,
+                                        {"op": o.name},
+                                        inc=o.superchunk_bucket_rows)
+                    if o.pipeline_stall_ns:
+                        metrics.histogram(metrics.PIPELINE_STALLS,
+                                          o.pipeline_stall_ns / 1e9,
+                                          {"op": o.name})
             if trace_on:
                 trace.log_tree(root, sql)
             if dur * 1000 >= slow_ms:
@@ -1399,10 +1413,18 @@ class Session:
 
     def _plan(self, stmt):
         with trace.span("plan", cached=False):
+            planner = self._planner()
             try:
-                return self._planner().plan(stmt)
+                plan = planner.plan(stmt)
             except (PlanError, ResolveError, SchemaError) as e:
                 raise SQLError(str(e)) from None
+            # degraded-but-answered notes (cluster_* fan-out with an
+            # unreachable member) surface via SHOW WARNINGS; the cluster
+            # memtables are cacheable=False, so a cache hit can never
+            # skip a fan-out that would have warned
+            for w in planner.warnings:
+                self.add_warning(*w)
+            return plan
 
     def _context(self, read_ts: int, txn=None) -> ExecContext:
         return ExecContext(self.storage.device, storage=self.storage,

@@ -1,9 +1,8 @@
 """Streaming coprocessor: bounded-memory framed partial responses.
 
-The port's copy of the JAX package's store/stream.py: the in-process
-half (the storage-side producer and the client's credit-window queue).
-The out-of-process wire path it mentions (store/wire.py, remote.py) is
-not ported yet.
+The port's copy of the JAX package's store/stream.py: the storage-side
+producer and the client's credit-window queue. Out of process, the
+frames ride store/wire.py's credit flow control (store/remote.py).
 
 Reference: the CmdCopStream mode of TiDB's store/tikv/
 coprocessor.go:547-555 (handleCopStreamResult: incremental per-range

@@ -20,9 +20,11 @@ the TRACE statement, which forces retention (`finish_statement`). The
 ring is billed to a `trace-ring` memtrack server node with a registered
 shed action, so admission shedding and `/shed` reclaim it.
 
-Left out with the fleet: the cross-process parts (`origin`,
-`attach_remote`) and the member start nonce in a trace id; an id is the
-process's 24-bit sequence alone.
+Across processes (the fleet, store/remote.py): `origin()` is the
+forward context a traced store RPC carries, `attach_remote` grafts the
+store plane's returned span tree under the calling span, and a trace id
+folds the member start nonce (member.py) into its high bits, so ids are
+unique across the fleet.
 """
 
 from __future__ import annotations
@@ -34,10 +36,11 @@ import time
 
 __all__ = ["Span", "SPAN_NAMES", "begin", "end", "span", "event",
            "annotate", "current_root", "active", "detach", "restore",
-           "attached", "propagate", "phase_ns", "log_tree", "ensure_id",
-           "finish_statement", "tree", "validate", "phases_of",
-           "ring_snapshot", "ring_records", "ring_get", "ring_stats",
-           "to_chrome", "reset_for_tests"]
+           "attached", "propagate", "attach_remote", "origin",
+           "phase_ns", "log_tree", "ensure_id", "finish_statement",
+           "tree", "validate", "phases_of", "ring_snapshot",
+           "ring_records", "ring_get", "ring_stats", "to_chrome",
+           "reset_for_tests"]
 
 log = logging.getLogger("tidb_tpu_torch.trace")
 
@@ -257,6 +260,45 @@ def event(name: str, **tags) -> None:
         cur.event(name, **tags)
 
 
+def origin() -> dict | None:
+    """Forward propagation context of the statement enclosing this
+    thread: the fleet-unique trace id of its ROOT plus the retention
+    flags, shipped inside traced store RPCs (store/remote.py request
+    flags) so anything the store plane retains on its own — slow
+    handler roots, forced traces — carries the originating statement's
+    id and member instead of being unjoinable. None when untraced."""
+    root = getattr(_tl, "root", None)
+    if root is None:
+        return None
+    return {"trace_id": ensure_id(root),
+            "sampled": bool(root.sampled),
+            "forced": bool(root.forced),
+            "member": _member().member_id()}
+
+
+def attach_remote(d: dict) -> None:
+    """Graft a span tree returned by another PROCESS (the storage node's
+    side of an RPC — store/remote.py) under the current span. Remote
+    clocks don't align, so only names/tags/durations carry over; the
+    child is pinned at the current moment with its reported duration.
+    Ref: the reference's cross-process span propagation
+    (session.go:692 opentracing context over gRPC)."""
+    parent = getattr(_tl, "cur", None)
+    if parent is None:
+        return
+
+    def build(node: dict) -> Span:
+        s = Span(node.get("name", "remote"), node.get("tags"))
+        dur = int(node.get("duration_ns", 0))
+        # end at "now" (the Span's birth instant), duration preserved
+        s.end_ns, s.start_ns = s.start_ns, s.start_ns - dur
+        for c in node.get("children", ()):
+            s.children.append(build(c))
+        return s
+
+    parent.children.append(build(d))
+
+
 def phase_ns(root: Span | None, name: str) -> int:
     """Sum of top-level child spans with `name` (a statement's parse /
     plan / execute / commit phase totals)."""
@@ -313,18 +355,31 @@ def _sample_next() -> bool:
         return _stmt_seq % n == 0
 
 
+_member_mod = None
+
+
+def _member():
+    global _member_mod
+    if _member_mod is None:
+        from tidb_tpu_torch import member
+        _member_mod = member
+    return _member_mod
+
+
 def ensure_id(root: Span) -> int:
-    """The root's trace id, assigned on first need (the TRACE statement
-    reads it before retention runs): a 24-bit per-process sequence, so
-    ids stay monotonic within one process and min_id filtering
-    (ring_records) works. The reference folds its member start nonce
-    into the high bits; the port has no member plane."""
+    """The root's fleet-unique trace id, assigned on first need (the
+    TRACE statement reads it before retention runs). The process's
+    32-bit member start nonce (member.py) occupies the high bits over a
+    24-bit per-process sequence: two members minting concurrently never
+    collide, a restarted member never reuses its predecessor's id space,
+    and ids stay monotonic within one process, so min_id filtering
+    (ring_records) works."""
     if root.trace_id is None:
         global _id_seq
         with _seq_lock:
             _id_seq += 1
             seq = _id_seq
-        root.trace_id = seq & 0xFFFFFF
+        root.trace_id = (_member().nonce() << 24) | (seq & 0xFFFFFF)
     return root.trace_id
 
 
@@ -406,15 +461,20 @@ def _span_count(root: Span) -> int:
 
 
 def finish_statement(root: Span, sql: str, error: str | None = None,
-                     slow_ms: int | None = None) -> int | None:
+                     slow_ms: int | None = None,
+                     origin: dict | None = None) -> int | None:
     """Retention decision for one ENDED statement root: keep the full
     tree in the ring when the statement was sampled, forced (TRACE), or
     ran past `tidb_tpu_slow_trace_ms`. -> trace id when retained, else
     None. The untraced path is one flag test + one sysvar read.
     `slow_ms` overrides the registry read — the session passes its
     shadowed (session-SET) value, captured while its overlay was still
-    installed. With no fleet, a record's origin is itself: its
-    origin_trace_id is its own id and its origin_member is empty."""
+    installed. `origin` is the forward-propagated context of a
+    cross-process caller (trace.origin() shipped in store-RPC flags):
+    the record's origin_trace_id/origin_member then name the SQL
+    statement that caused this store-plane root instead of the local
+    identity, the join key cluster_statement_traces and /fleet/trace
+    search on."""
     if root.forced:
         reason = "forced"
     elif root.sampled:
@@ -437,8 +497,9 @@ def finish_statement(root: Span, sql: str, error: str | None = None,
         "reason": reason,
         "error": error and error[:256],
         "span_count": _span_count(root),
-        "origin_trace_id": tid,
-        "origin_member": "",
+        "origin_trace_id": int(origin["trace_id"]) if origin else tid,
+        "origin_member": (origin.get("member") or "") if origin
+        else _member().member_id(),
         "root": root,
     }
     rec["cost"] = rec["span_count"] * _SPAN_EST_BYTES + len(rec["sql"])
