@@ -4,10 +4,9 @@ Replayed against the port (`replay`: the source pointed at
 `tidb_tpu_torch`, storages on the CPU): `tests/test_bench_tools.py`
 (benchdb's job string over `Session`, benchraw, benchfilesort over
 `executor/extsort.SpillSorter`) and `tests/test_json_xserver.py`, whose
-`TestXServer` drives `server/xserver.XServer` over a socket. Not
-replayed: `test_ssb_streaming_wide_scan` (the SSB wide scan streams
-through the mesh aggregation, `devplane.enable_mesh` and
-`tidb_tpu_stream_rows`: the multi-device plane is not ported). Then
+`TestXServer` drives `server/xserver.XServer` over a socket.
+`test_ssb_streaming_wide_scan` is replayed on its own in
+test_torch_replay_ssb.py, on an 8-shard plane. Then
 benchdb's `--store` leg runs against a store plane over the wire, and
 the CLI of each tool on the CPU.
 """
@@ -18,10 +17,8 @@ from tidb_tpu_torch.benchmarks import benchdb, benchfilesort, benchraw
 from tidb_tpu_torch.store.remote import StorageServer
 
 replay("test_bench_tools.py", globals(), drop={
-    "test_ssb_streaming_wide_scan":
-        "SSB's wide scan streams through the mesh aggregation "
-        "(devplane.enable_mesh, tidb_tpu_stream_rows): the multi-device "
-        "plane is not ported"})
+    "test_ssb_streaming_wide_scan": "replayed in test_torch_replay_ssb.py "
+                                    "on an 8-shard plane"})
 replay("test_json_xserver.py", globals())
 
 

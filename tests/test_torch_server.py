@@ -385,18 +385,22 @@ def _spawn(args):
 def test_cli_serves_on_the_cpu_and_stops_on_sigterm():
     proc = _spawn(["--device", "cpu", "--port", "0", "--status-port", "0",
                    "--set", "tidb_tpu_device_min_rows=1"])
-    port = status = None
+    port = status = mesh = None
     try:
         for _ in range(200):
             line = proc.stdout.readline()
             if not line:
                 break
+            if "device mesh:" in line:
+                mesh = line.split("device mesh:", 1)[1].strip()
             if "MySQL protocol on" in line:
                 port = int(line.rsplit(":", 1)[1])
             if "status API on" in line:
                 status = int(line.rsplit(":", 1)[1])
                 break
         assert port and status, "server did not report its ports"
+        # without --mesh: one shard per device, so nothing is routed
+        assert mesh == repr({"batch": 1})
         c = MiniClient("127.0.0.1", port)
         c.query("CREATE DATABASE d")
         c.query("CREATE TABLE d.t (id BIGINT PRIMARY KEY, g INT)")

@@ -15,8 +15,11 @@ storeserve [--device ...]` runs the fleet's store plane
 stateless SQL member over it, with its own chunk and HBM caches on its
 device. With the status server up, the process registers in the
 membership registry (member.py). The XLA compile-cache report is not
-ported; `--mesh`/`--no-mesh` are accepted and logged: the port drives
-one device.
+ported. As in the reference, the process installs a device plane
+(devplane.py) over every visible device by default, so one card keeps
+ndev = 1 and plans are never routed onto a plane; `--mesh N` installs
+N shards spread over the visible devices (several may share one card),
+`--no-mesh` none.
 """
 
 from __future__ import annotations
@@ -53,8 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device of the store and its kernels "
                         "(default cuda; cpu runs the host path)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="accepted for the reference's command line; the "
-                        "port drives one device")
+                   help="device plane of N shards over the visible "
+                        "devices (default: one per device)")
     p.add_argument("--no-mesh", action="store_true")
     p.add_argument("--token-limit", type=int, default=1000,
                    help="max concurrent connections (ref: TokenLimit)")
@@ -124,8 +127,12 @@ def main(argv=None) -> int:
              config.server_mem_quota(),
              "on" if config.server_mem_quota() else "off",
              config.admission_timeout_ms())
-    if args.no_mesh or args.mesh is not None:
-        log.info("device mesh: not ported, the port drives one device")
+    from tidb_tpu_torch import devplane
+    if args.no_mesh:
+        devplane.disable_mesh()
+    else:
+        devplane.enable_mesh(args.mesh, device=device)
+        log.info("device mesh: %s", devplane.active_mesh().shape)
 
     from tidb_tpu_torch.server import Server
     from tidb_tpu_torch.server.status import StatusServer

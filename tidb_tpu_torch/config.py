@@ -24,7 +24,8 @@ __all__ = ["get_var", "set_var", "session_overlay", "current_overlay",
            "copr_stream_frame_bytes", "copr_stream_credit",
            "device_cache_bytes", "delta_store_enabled", "delta_merge_rows",
            "delta_merge_ratio_pct", "delta_retain_ms", "device_min_rows",
-           "superchunk_rows", "pipeline_depth", "fused_scan_enabled",
+           "stream_rows", "superchunk_rows", "pipeline_depth",
+           "fused_scan_enabled",
            "encoded_exec_enabled", "fuse_fragments_enabled",
            "direct_agg_slots", "join_partitions", "skew_threshold",
            "sort_spill_rows", "mem_quota_query", "sched_inflight",
@@ -329,6 +330,10 @@ def device_enabled() -> bool:
 
 def device_min_rows() -> int:
     return _read("tidb_tpu_device_min_rows")
+
+
+def stream_rows() -> int:
+    return _read("tidb_tpu_stream_rows")
 
 
 def superchunk_rows() -> int:

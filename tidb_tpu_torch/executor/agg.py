@@ -46,7 +46,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from tidb_tpu_torch import config, memtrack, profiler, runtime_stats, sched
+from tidb_tpu_torch import (config, devplane, memtrack, profiler,
+                            runtime_stats, sched)
 from tidb_tpu_torch.chunk import Chunk, Column
 from tidb_tpu_torch.executor import ExecContext, ExecStats
 from tidb_tpu_torch.executor.join import HashJoin
@@ -395,8 +396,8 @@ class HashAgg:
     def _fragment_kernel(self, ctx):
         """A ProbeAggKernel when this agg can fuse with its child join
         into one dispatch per probe superchunk, else None: fusion needs a
-        plain inner hash join (no other_cond) and a device-safe
-        group/agg set over the joined schema."""
+        plain single-device inner hash join (no other_cond) and a
+        device-safe group/agg set over the joined schema."""
         if not config.fuse_fragments_enabled():
             return None
         join = self.child
@@ -405,6 +406,8 @@ class HashAgg:
         if join.join_type != "inner" or join.other_cond is not None \
                 or not join.left_keys:
             return None
+        if devplane.ndev() > 1:
+            return None     # the plane's shuffle owns multi-shard joins
         nl = len(join.left.schema)
         width = nl + len(join.right.schema)
         try:

@@ -5,7 +5,9 @@ executorBuilder.build, builder.go:62-146).
 
 The reference's executors read their plan node; the port's operators
 take the node's fields as arguments, so each builder below carries every
-field the reference's executor reads: a HashJoin gets its keys, join
+field the reference's executor reads (a plane operator keeps its plan
+node, whose `fallback` subtree it builds when it cannot run on the
+plane, plus its built scans): a HashJoin gets its keys, join
 type, other condition and the planner's probe-side CMSketch
 (`probe_cms`, the hybrid join's heavy-hitter seed); a HashAgg over a
 plain inner HashJoin fuses probe and partial aggregation per probe
@@ -26,6 +28,7 @@ from tidb_tpu_torch.executor import ExecError
 from tidb_tpu_torch.executor.agg import HashAgg, StreamAgg
 from tidb_tpu_torch.executor.apply import Apply
 from tidb_tpu_torch.executor.join import HashJoin, IndexJoin, MergeJoin
+from tidb_tpu_torch.executor.mesh import MeshAggExec, MeshLookupAggExec
 from tidb_tpu_torch.executor.reader import (IndexLookUp, IndexReader,
                                             TableReader)
 from tidb_tpu_torch.executor.root import (FinalAgg, Limit, PointGet,
@@ -33,6 +36,7 @@ from tidb_tpu_torch.executor.root import (FinalAgg, Limit, PointGet,
                                           Union, Values)
 from tidb_tpu_torch.executor.write import (Delete, Insert, MultiDelete,
                                            MultiUpdate, Update)
+from tidb_tpu_torch.plan import mesh_route as mr
 from tidb_tpu_torch.plan import physical as ph
 
 __all__ = ["build"]
@@ -94,6 +98,15 @@ def _stream_agg(p: ph.PhysStreamAgg):
                    sorted_input=p.sorted_input)
     op.schema = _cols(p)
     return op
+
+
+def _mesh_agg(p: mr.PhysMeshAgg):
+    return MeshAggExec(p, build(p.children[0]))
+
+
+def _mesh_lookup_agg(p: mr.PhysMeshLookupAgg):
+    return MeshLookupAggExec(p, build(p.children[0]),
+                             [build(lk.build_plan) for lk in p.lookups])
 
 
 def _hash_join(p: ph.PhysHashJoin):
@@ -180,6 +193,8 @@ def _multi_delete(p: ph.PhysMultiDelete):
 
 
 _BUILDERS = {
+    mr.PhysMeshAgg: _mesh_agg,
+    mr.PhysMeshLookupAgg: _mesh_lookup_agg,
     ph.PhysApply: _apply,
     ph.PhysUnion: _union,
     ph.PhysTableReader: _table_reader,

@@ -36,17 +36,24 @@ pipeline_map), the per-chunk path one per sync call (sched.device_slot).
 A join without an equi-key is a cross join (`_cross_join`): the build
 materializes once and each probe chunk joins with all of it on the host.
 
-Left out: the mesh shuffle kernel (the multi-device plane).
+On a device plane of more than one shard (devplane.py) a build of at
+least _DEVICE_MIN_BUILD rows joins through the plane's shuffle kernel
+(ops/meshshuffle.py: an all_to_all repartition of both sides, then a
+sort join per shard), probe chunks re-batched into super-batches of up
+to `tidb_tpu_stream_rows`; a probe smaller than _DEVICE_MIN_PROBE rows
+does not pay the repartition and takes the single-device paths.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 import time
 
 import numpy as np
 
-from tidb_tpu_torch import (config, kv, memtrack, runtime_stats, sched,
-                            tablecodec)
+from tidb_tpu_torch import (config, devplane, kv, memtrack, runtime_stats,
+                            sched, tablecodec)
 from tidb_tpu_torch import ranger as rg
 from tidb_tpu_torch.chunk import Chunk, Column
 from tidb_tpu_torch.executor.reader import txn_is_dirty
@@ -63,6 +70,22 @@ from tidb_tpu_torch.store.copr import exec_cop_plan
 from tidb_tpu_torch.table import index_kvrows_to_chunk, kvrows_to_chunk
 
 __all__ = ["HashJoin", "MergeJoin", "IndexJoin"]
+
+# plane shuffle kernels, one per (plane generation, key arity): the
+# kernel's build memo and shape state survive across queries
+_SHUFFLE_KERNELS: dict = {}
+_SHUFFLE_KERNELS_LOCK = threading.Lock()
+
+
+def _drop_stale_shuffle_kernels() -> None:
+    """Topology listener: kernels of an older plane never run again."""
+    gen = devplane.mesh_generation()
+    with _SHUFFLE_KERNELS_LOCK:
+        for k in [k for k in _SHUFFLE_KERNELS if k[0] != gen]:
+            del _SHUFFLE_KERNELS[k]
+
+
+devplane.on_topology_change(_drop_stale_shuffle_kernels)
 
 
 class HashJoin:
@@ -161,6 +184,24 @@ class HashJoin:
                            ci=[e.ft.is_ci for e in self.right_keys])
         return enc, bk, raw_bk
 
+    def _mesh_kernel(self, nb: int):
+        """The plane's shuffle-join kernel when a plane of more than one
+        shard is active and the build side is big enough to be worth a
+        repartition, else None. Cached per (plane generation, key
+        arity)."""
+        mesh = devplane.active_mesh()
+        if mesh is None or mesh.devices.size <= 1 or \
+                nb < self._DEVICE_MIN_BUILD or not config.device_enabled():
+            return None
+        from tidb_tpu_torch.ops.meshshuffle import MeshShuffleJoinKernel
+        key = (devplane.mesh_generation(), len(self.left_keys))
+        with _SHUFFLE_KERNELS_LOCK:
+            kernel = _SHUFFLE_KERNELS.get(key)
+            if kernel is None:
+                kernel = MeshShuffleJoinKernel(mesh, len(self.left_keys))
+                _SHUFFLE_KERNELS[key] = kernel
+        return kernel
+
     def build_label(self) -> str:
         """The build side's table name, where it is a scan."""
         return getattr(self.right, "table", "?")
@@ -195,8 +236,30 @@ class HashJoin:
         self._kernel = JoinKernel(len(self.left_keys), device=ctx.device)
         matched_build = np.zeros(nb, dtype=bool)
         probe_iter = self.left.chunks(ctx)
-        device_ok = nb > 0 and config.device_enabled() and \
-            bool(config.superchunk_rows())
+        mesh_kernel = self._mesh_kernel(nb)
+        if mesh_kernel is not None:
+            # each shuffle-join call is one all_to_all repartition of both
+            # sides over the plane, so probe chunks re-batch into large
+            # super-batches, bounded by tidb_tpu_stream_rows (the build
+            # side's sharded transfer is memoized across batches). A
+            # small probe does not pay for the collective at all
+            buffered, total = [], 0
+            for c in probe_iter:
+                buffered.append(c)
+                total += c.num_rows
+                if total >= self._DEVICE_MIN_PROBE:
+                    break
+            if total >= self._DEVICE_MIN_PROBE:
+                probe_iter = (sc.chunk for sc in
+                              op_runtime.superchunk_batches(
+                                  itertools.chain(buffered, probe_iter),
+                                  max(config.stream_rows(),
+                                      self._DEVICE_MIN_PROBE)))
+            else:
+                mesh_kernel = None
+                probe_iter = iter(buffered)
+        device_ok = mesh_kernel is None and nb > 0 and \
+            config.device_enabled() and bool(config.superchunk_rows())
         if not device_ok:
             hyb = None
         elif pre_h is not None:
@@ -208,7 +271,8 @@ class HashJoin:
             hyb = self._maybe_hybrid(ctx, bk, nb, raw_bk)
         ctx.stats.join_paths[self.build_label()] = \
             "hybrid" if hyb is not None else \
-            "pipelined" if device_ok else "per-chunk"
+            "pipelined" if device_ok else \
+            "shuffle" if mesh_kernel is not None else "per-chunk"
         if hyb is not None:
             ctx.stats.hybrid_joins += 1
             try:
@@ -236,9 +300,23 @@ class HashJoin:
                     elif self.join_type == "anti":
                         yield chunk        # nothing can match: all survive
                     continue
-                # superchunks off: the same sort join, per chunk
+                # superchunks off (or the plane's shuffle): the same
+                # sort join, per chunk
                 pk = self._probe_keys(enc, chunk)
-                if config.device_enabled() and \
+                if mesh_kernel is not None:
+                    from tidb_tpu_torch.ops.meshshuffle import \
+                        ShuffleOverflowError
+                    ctx.stats.join_dispatches += 1
+                    try:
+                        li, ri = runtime_stats.device_call(
+                            self, mesh_kernel, pk, bk, nb, n)
+                    except ShuffleOverflowError:
+                        # designed fallback: extreme hash skew exhausted
+                        # the repartition retry budget
+                        with sched.device_slot():
+                            li, ri = runtime_stats.device_call(
+                                self, self._kernel, bk, pk, nb, n)
+                elif config.device_enabled() and \
                         (n >= self._DEVICE_MIN_PROBE or
                          nb >= self._DEVICE_MIN_BUILD):
                     ctx.stats.join_dispatches += 1

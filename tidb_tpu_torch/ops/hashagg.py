@@ -355,10 +355,13 @@ class _SegBatch:
 
 
 def _agg_requests(xp, agg: AggDesc, cols, n, mask, batch: _SegBatch,
-                  arange=None):
+                  arange=None, offs=None, row_ids=None):
     """Phase 1 of an aggregate's partial-state lanes: enqueue the per-row
     inputs on `batch`, return assemble(get) -> [(array[capacity],
-    merge_op)] for after batch.run()."""
+    merge_op)] for after batch.run(). With `offs` (a plane shard's
+    global row offset) FIRST_ROW indices are globalized for the
+    cross-shard merge; `row_ids` (the original probe row of each
+    compacted row, ops/meshjoin.py) replaces the row identity."""
     fn = agg.fn
     if agg.arg is not None:
         d, v = agg.arg.eval_xp(xp, cols, n)
@@ -390,11 +393,21 @@ def _agg_requests(xp, agg: AggDesc, cols, n, mask, batch: _SegBatch,
         i1 = batch.add(live_i, "max")
         return lambda g: [(g(i0), "max"), (g(i1), "max")]
     if fn == AggFunc.FIRST_ROW:
+        if row_ids is not None:
+            i0 = batch.add(torch.where(live, row_ids, _I64_MAX), "min")
+            i1 = batch.add(live_i, "max")
+            return lambda g: [(g(i0), "min"), (g(i1), "max")]
         if arange is None:
             arange = xp.arange(n)
         i0 = batch.add(torch.where(live, arange, n), "min")
         i1 = batch.add(live_i, "max")
-        return lambda g: [(g(i0), "min"), (g(i1), "max")]
+        if offs is None:
+            return lambda g: [(g(i0), "min"), (g(i1), "max")]
+
+        def assemble(g):
+            first = torch.where(g(i1) > 0, offs + g(i0), _I64_MAX)
+            return [(first, "min"), (g(i1), "max")]
+        return assemble
     raise NotImplementedError(f"device agg {fn}")
 
 

@@ -23,6 +23,7 @@ from tidb_tpu_torch.expression import Expression
 
 __all__ = ["bucket_size", "pad_column", "put_lanes", "device_put_chunk",
            "resolve_device", "eval_filter_host", "filter_mask_xp",
+           "shard_put",
            "note_put", "put_bytes",
            "MIN_BUCKET", "Superchunk", "superchunk_batches",
            "pipeline_map", "FingerprintCache", "plan_fingerprint"]
@@ -363,17 +364,24 @@ def put_lanes(lanes, n: int, size: int, device) -> list:
 
 
 def device_put_chunk(chunk: Chunk, device=None, size: int | None = None,
-                     memo: bool = True, used=None):
+                     memo: bool = True, used=None, to_device: bool = True):
     """-> (cols, dicts): cols[j] is (data, valid) tensors on `device`,
     padded to a bucketed size, for every column j in `used` (None for the
     others; used=None ships every column); varlen columns are
     dict-encoded and their dictionaries returned in `dicts[j]`. The lanes
     travel in one pinned buffer and one copy (`put_lanes`).
 
+    With to_device=False the lanes stay numpy (unpadded, contiguous) so
+    the caller can shard them over the plane itself (`shard_put`: one
+    transfer per shard, no copy to a single device first).
+
     The transfer is memoized on the chunk (keyed by device, padded size and
     column set): a chunk presented again keeps its columns resident and
     pays zero host->device bytes. Callers must treat chunks as
     immutable. memo=False skips the memo."""
+    if not to_device:
+        lanes, dicts = _host_lanes(chunk, used)
+        return [lanes.get(j) for j in range(len(chunk.columns))], dicts
     device = resolve_device(device)
     size = size or bucket_size(chunk.num_rows)
     used_key = None if used is None else tuple(sorted(used))
@@ -394,7 +402,29 @@ def device_put_chunk(chunk: Chunk, device=None, size: int | None = None,
     return out
 
 
-# a chunk may be consumed under two column sets (or devices); a tiny
+def shard_put(lanes, n: int, ln: int, mesh) -> list:
+    """Numpy lanes of `n` rows (device_put_chunk's to_device=False form,
+    None for unshipped columns) -> per-shard column lists for a
+    ``("batch",)`` plane: shard i holds rows [i*ln, (i+1)*ln) on its
+    device, padded to `ln` (padding invalid), each shard's lanes in one
+    pinned buffer and one copy (`put_lanes`)."""
+    order = [j for j, lane in enumerate(lanes) if lane is not None]
+    shards = []
+    for i, dev in enumerate(mesh.devices.flat):
+        lo = min(i * ln, n)
+        hi = min(lo + ln, n)
+        part = [(d[lo:hi], v[lo:hi]) for d, v in
+                (lanes[j] for j in order)]
+        cols: list = [None] * len(lanes)
+        if order:
+            for j, lane in zip(order, put_lanes(part, hi - lo, ln, dev)):
+                cols[j] = lane
+        shards.append(cols)
+    return shards
+
+
+# a chunk may be consumed under two column sets (or devices), or by a
+# plane path (the ('shard', generation, size, used) key); a tiny
 # per-chunk LRU lets both memos coexist instead of evicting each other
 _DEV_CACHE_SLOTS = 2
 

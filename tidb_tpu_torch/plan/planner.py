@@ -1,8 +1,9 @@
 """Rule-based planner: AST -> physical plan with storage pushdown.
 
-The port's copy of the JAX package's plan/planner.py, with one cut: no
-mesh pass (on one device the reference's route_mesh returns the plan
-unchanged; the multi-device plane is not ported). The information_schema
+The port's copy of the JAX package's plan/planner.py; a SELECT's plan
+passes through the mesh pass (plan/mesh_route.route_mesh), which
+rewrites Q1- and Q3/Q5-shaped subtrees onto the device plane when one
+of more than one shard is installed. The information_schema
 observability memtables read memtrack, the meter, the trace ring, the
 profiler and perfschema's mode memo; the cluster_* memtables fan out
 over the fleet's membership plane (member.py, util/statusclient.py);
@@ -138,12 +139,14 @@ class Planner:
             # marked and inherits the child's volatility.
             outer_volatile = was_volatile()
             reset_volatile()
+            from tidb_tpu_torch.plan.mesh_route import route_mesh
             built = self._plan_query(stmt)
-            # no mesh pass: on one device the reference's route_mesh
-            # returns the plan unchanged (plan/mesh_route.py), and the
-            # multi-device plane is not ported
+            # mesh routing first: its fused star-join pipeline matches
+            # the ORIGINAL join shapes (and orders dims itself); greedy
+            # reorder then improves whatever stays on the per-operator
+            # path
             p = self._opt_physical(self._reorder_joins(
-                self._opt_access(built)))
+                route_mesh(self._opt_access(built))))
             p.cacheable = not was_volatile()
             if outer_volatile:
                 mark_volatile()

@@ -388,8 +388,9 @@ class Domain:
 
     def plan_cache(self):
         """Shared LRU of compiled SELECT plans keyed by (sql, db,
-        schema version, stats version) — ref: plan/cache.go + the
-        kvcache-backed plan cache wired in tidb-server/main.go:349."""
+        schema version, stats version, plane generation) — ref:
+        plan/cache.go + the kvcache-backed plan cache wired in
+        tidb-server/main.go:349."""
         if self._plan_cache is None:
             from tidb_tpu_torch.util import LRUCache
             self._plan_cache = LRUCache(200)
@@ -1455,10 +1456,14 @@ class Session:
         cache_key = None
         if sql_text is not None:
             # the plan cache (ref: plan/cache.go): a single-statement
-            # SELECT's text under this database, schema and stats
+            # SELECT's text under this database, schema, stats and
+            # device plane (a plan routed onto one plane never outlives
+            # a topology change)
+            from tidb_tpu_torch import devplane
             cache_key = (sql_text, self.current_db,
                          self.domain.info_schema().version,
-                         self.domain.stats_handle().version)
+                         self.domain.stats_handle().version,
+                         devplane.mesh_generation())
             plan = self.domain.plan_cache().get(cache_key)
         if plan is None:
             plan = self._plan(stmt)

@@ -32,8 +32,15 @@ functional `data.at[idx].set(v)` becomes a `clone()` of the resident
 tensor followed by `index_copy_`, so readers holding the old block keep
 an immutable snapshot; its index vectors and delta lanes travel to the
 card in one pinned, non-blocking copy, and nothing in it reads a device
-value back. One device, so a block is never replicated (the reference
-replicates across a multi-chip plane).
+value back.
+
+On a device plane of more than one shard (devplane.py) a block is
+replicated, as in the reference: one copy on the cache's device and one
+on each OTHER distinct device of the plane (`DeviceBlock.replicas`,
+patched with the primary). The reference holds one copy per chip and
+bills nbytes x ndev; here shards that share a device share its copy,
+and fill() bills nbytes x the copies actually held (`block_replicas`),
+so the hbm-cache ledger equals the resident bytes on every plane.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from tidb_tpu_torch import config, memtrack, metrics, trace
 from tidb_tpu_torch.util import failpoint
 
 __all__ = ["DeviceBlock", "DeviceCache", "upload_block", "scatter_block",
-           "tracker", "shed_all"]
+           "tracker", "shed_all", "block_replicas", "replica_devices"]
 
 
 _tracker_lock = threading.Lock()
@@ -116,6 +123,33 @@ def upload_block(chunk, size: int, device):
     device memory). -> (cols, dicts)."""
     from tidb_tpu_torch.ops import runtime
     return runtime.device_put_chunk(chunk, device, size, memo=False)
+
+
+def _same_device(a, b) -> bool:
+    """Device equality with "cuda" read as the current CUDA device."""
+    def norm(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return norm(a) == norm(b)
+
+
+def replica_devices(device) -> list:
+    """The devices other than `device` on which a block uploaded NOW keeps
+    a copy: the other distinct devices of a plane of more than one shard
+    (none without one)."""
+    from tidb_tpu_torch import devplane
+    mesh = devplane.active_mesh()
+    if mesh is None or devplane.ndev(mesh) <= 1:
+        return []
+    return [d for d in mesh.distinct() if not _same_device(d, device)]
+
+
+def block_replicas(device) -> int:
+    """Copies of a block uploaded NOW: fill() bills nbytes x this, so the
+    hbm-cache ledger carries the plane's true footprint."""
+    return 1 + len(replica_devices(device))
 
 
 def _to_device(host_arrays, device):
@@ -189,11 +223,13 @@ class DeviceBlock:
 
     __slots__ = ("cols", "dicts", "nrows", "size", "nbytes",
                  "handles", "pos_handles", "hmap", "dictmaps", "patched",
-                 "host_rows")
+                 "host_rows", "replicas")
 
     def __init__(self, cols, dicts, nrows: int, size: int, nbytes: int,
-                 handles=None):
+                 handles=None, replicas=None):
         self.cols = cols
+        # device -> the same lanes on another device of the plane
+        self.replicas = replicas or {}
         self.dicts = dicts
         self.nrows = nrows
         self.size = size
@@ -373,14 +409,18 @@ class DeviceCache:
         failpoint.eval("hbm/fill")
         budget = config.device_cache_bytes()
         size = bucket_size(max(chunk.num_rows, 1))
-        nbytes = memtrack.device_put_bytes(chunk, size)
+        # a plane of several devices replicates the block to each of
+        # them: the budget sees every copy
+        others = replica_devices(self.device)
+        nbytes = memtrack.device_put_bytes(chunk, size) * (1 + len(others))
         if nbytes > budget:
             return None
         with trace.span("hbm.fill", rows=chunk.num_rows, bytes=nbytes):
             cols, dicts = upload_block(chunk, size, self.device)
+            replicas = {d: upload_block(chunk, size, d)[0] for d in others}
         block = DeviceBlock(cols, dicts, chunk.num_rows, size, nbytes,
                             handles=getattr(chunk, "_scan_handles",
-                                            None))
+                                            None), replicas=replicas)
         with self._mu:
             if key in self._entries:
                 self._drop_locked(key)
@@ -504,6 +544,9 @@ class DeviceCache:
                                                 dtype=bool))
         new_cols = scatter_block(block.cols, move_src, move_dst, write_idx,
                                  wvals, wvalids, self.device)
+        new_reps = {d: scatter_block(rc, move_src, move_dst, write_idx,
+                                     wvals, wvalids, d)
+                    for d, rc in block.replicas.items()}
         # host-side position index follows the same moves/writes
         for src, dst in move_map.items():
             h = int(pos_handles[src])
@@ -517,7 +560,7 @@ class DeviceCache:
             hmap.pop(int(h), None)
         pos_handles[new_nrows:nrows] = -1
         nb = DeviceBlock(new_cols, block.dicts, new_nrows, size,
-                         block.nbytes, handles=None)
+                         block.nbytes, handles=None, replicas=new_reps)
         # the position index hands off: only the entry's CURRENT block
         # is ever patched, the predecessor keeps serving readers that
         # already hold it
