@@ -39,7 +39,7 @@ Phases, one JSON line each:
           spilled runs to disk, no fallback, no host sync in the first
           SegmentAggKernel dispatch, and the ledger reads 0 afterwards
   sql     TPC-H Q1, Q3 and Q5 as SQL text through the port's Session
-          (tidb_tpu_torch.session) at SF 1 (STORE_SF, or --sf where
+          (tidb_tpu_torch.session) at SF 0.5 (STORE_SF, or --sf where
           smaller): CREATE DATABASE tpch, USE tpch, tpch.load (the DDL
           through the DDL and meta layers, lineitem and orders in 4
           regions); Q1 cold, warm (HBM fill) and hot, then Q3 and Q5
@@ -55,11 +55,11 @@ Phases, one JSON line each:
           and htap
   mesh    the device plane on the sql phase's store (mesh_phase):
           enable_mesh(4) puts a plane of 4 shards on the one card and,
-          with tidb_tpu_stream_rows = 1,048,576, Q1, Q3 and Q5 run as
+          with tidb_tpu_stream_rows = 524,288, Q1, Q3 and Q5 run as
           SQL through the plane's operators (EXPLAIN: MeshAgg,
           MeshLookupAgg), a join whose build keys repeat through
           HashJoin and the plane's shuffle kernel, and on an SSB store of
-          its own (benchmarks/ssb.setup at SF 1, 6,000,000 rows x 13
+          its own (benchmarks/ssb.setup at SF 0.5, 3,000,000 rows x 13
           BIGINT columns in 16 regions; BASELINE's SF 30 cut, the mock
           store holds every KV pair as a Python object) SSB Q1.1 (the
           coprocessor's fused path, as the reference routes a scalar
@@ -145,7 +145,7 @@ Phases, one JSON line each:
           `python -m tidb_tpu_torch` as a child serving 65,536 rows and
           exiting 0 on SIGTERM
   fleet   the fleet on the card (fleet_phase): a store-plane process
-          that loads a snapshot of an SF 0.1 store (FLEET_SF) and two
+          that loads a snapshot of an SF 0.05 store (FLEET_SF) and two
           SQL members, each a fresh interpreter with its own chunk and
           HBM caches, driven over the wire: cold and hot Q1 on each
           member (4 HBM hits, no host->device byte hot; the other
@@ -161,6 +161,29 @@ Phases, one JSON line each:
           with an "unreachable" warning), its restart and rejoin; each
           process's own /status shows the kernel launched in it, by
           shape; Fleet.stop() leaves no child
+  legs    bench.py's other legs on the card (legs_phase), each as
+          `python -m tidb_tpu_torch.bench LEG` runs it
+          (tidb_tpu_torch.bench.run_leg) at the reference's defaults:
+          encoded, trace, profile, serve and chaos in process, each on a
+          store of its own; the north-star line's skew_join block on a
+          store of its own at SF 1's sizes (400,000 facts, 20,000
+          dimension rows), device against host; the kernel-only Q1
+          micro at 2^20 rows, held against numpy; multichip over planes
+          of 1, 2, 4 and 8 shards on the card; the fleet leg with four
+          SQL members (each process's launches from its /status); `python
+          -m tidb_tpu_torch.bench trace` once as a child (the CLI and its
+          exit code); and check_htap's verdict on the htap phase's
+          sweep. One line per leg: seconds, launches, headline numbers,
+          the contract's (benchmarks/contracts.py) failed invariants and
+          floors. An invariant fails the phase (a wrong result, a
+          non-retryable error, a stuck statement, an OOM cancel, a
+          ledger or slot left, an encoding or mesh fallback, an
+          unbalanced trace tree, an empty kernel profile, attribution
+          coverage outside [0.9, 1.1], a leg or a fleet member that
+          never launched the segment-sum kernel); the performance
+          floors (the fleet's 2.0x scaling, htap's 0.5 vs_read_only,
+          multichip's 0.75 ratio and serve_scales) print their verdicts
+          only
   faults  the device plane under injected faults, on Q1 from a store of
           its own at SF 0.1 (CHECK_SF) on one fan-out thread: a dispatch
           fault once (retried on the card, no fallback), then in every
@@ -182,10 +205,12 @@ Phases, one JSON line each:
           index-join statements, the sqlrest phase's Q18, UNION ALL,
           cross join, per-chunk Q3 and Q5 and the loaded table's Q1, and
           the server phase's cold, warm and prepared Q1 and cold Q3 and
-          Q5 over the wire gave it (their calls recorded by
-          segsum_bench.record_calls), and the fleet's processes
-          reported (a shape no other path recorded is held and timed on
-          seeded inputs of that shape),
+          Q5 over the wire, and the legs phase's in-process legs (path
+          "legs": encoded, trace, profile, serve, chaos, skew_join, the
+          kernel-only micro and multichip) gave it (their calls recorded
+          by segsum_bench.record_calls), and the fleet's processes and
+          the legs' fleet members reported (a shape no other path
+          recorded is held and timed on seeded inputs of that shape),
           held again on those
           very inputs and timed: device time beside its host time per
           call, the plain version, one PyTorch library call and the bound
@@ -193,7 +218,8 @@ Phases, one JSON line each:
           that timing, `timed_on`); timed after the queries, since
           launches slow down in a process that torch.profiler has traced
   kernels one line listing every kernel at each of those shapes, with its
-          launches there on its path, its parity and its times
+          launches there on its path (the legs' as "legs" and
+          "legs-fleet-<member>"), its parity and its times
 With --profile, each of q1, q3 and q5 adds torch.profiler tables of one
 more run: device time by kernel, host time by op, device idle share; the
 store phase adds one more hot run of its Q3 and Q5 and a hot and a
@@ -223,7 +249,8 @@ import torch
 # The chunk-fed Q1, Q3, Q5 and ANALYZE's scale factor (--sf's default):
 # cut from 10 to 2 when the mesh phase came, with LOAD_SF, HTAP_WINDOW_S
 # and SERVER_WINDOW_S below, so that the whole smoke keeps a margin
-# inside its time limit (at SF 5 it took 984-1,139 s of command)
+# inside its time limit (at SF 5 it took 984-1,139 s of command); not to
+# 1, where the Q3 quota run stages no probe row
 DEFAULT_SF = 2.0
 
 # Q18's inner block merges its ~1.5 M groups per scale factor one by one
@@ -235,10 +262,12 @@ Q18_SF = 1.0
 
 # The store phase loads TPC-H into the mock TiKV store (every KV pair a
 # Python object) and decodes each lineitem row of the cold scan on the
-# host, so it runs at SF 1 (STORE_SF, or --sf where smaller): the JAX
-# package's own scale for this path, where the four resident lineitem
-# blocks (2,097,152 padded rows x 12 columns) fit the 2 GiB block cache
-STORE_SF = 1.0
+# host, so it runs at SF 0.5 (STORE_SF, or --sf where smaller): cut from
+# SF 1, the JAX package's own scale for this path, when the legs phase
+# came (the sql, mesh, bench, store, htap, sqlrest and server phases
+# run on this store, and at SF 1 the smoke projected to ~1,100 s of
+# command); the four resident lineitem blocks fit the 2 GiB block cache
+STORE_SF = 0.5
 # The store phase's host-sync checks run first, on a store of their own
 # at this scale factor (or --sf where smaller): sync-debug mode is
 # process-wide, so they fan out on one thread, and one-time work they do
@@ -1229,11 +1258,14 @@ def sql_phase(args, dev, recorded) -> tuple[dict, dict]:
 # The mesh phase: a plane of MESH_SHARDS shards on the one card (the
 # port's counterpart of the reference's virtual multi-device mesh), the
 # TPC-H statements and SSB streaming in batches of MESH_STREAM_ROWS rows.
-# SSB runs at SF 1 (SSB_SF; BASELINE's SF 30 cut: the mock store holds
-# every KV pair as a Python object) in SSB_REGIONS regions.
+# SSB runs at SF 0.5 (SSB_SF; BASELINE's SF 30 cut: the mock store holds
+# every KV pair as a Python object; cut from SF 1, whose load took 64-84
+# s, when the legs phase came) in SSB_REGIONS regions.
 MESH_SHARDS = 4
-MESH_STREAM_ROWS = 1 << 20
-SSB_SF = 1.0
+# halved with STORE_SF (PR 13), so that orders (750,000 rows at SF 0.5)
+# still streams in more than one batch
+MESH_STREAM_ROWS = 1 << 19
+SSB_SF = 0.5
 SSB_REGIONS = 16
 # a join whose build keys repeat on both sides, too few pairs to make
 # the host's gather of the joined rows the phase's cost: the shuffle
@@ -3036,12 +3068,12 @@ def server_phase(args, dev, recorded, storage, d, counter) -> dict:
 
 
 # The fleet phase's store plane loads a snapshot of a TPC-H store at SF
-# 0.1 (FLEET_SF, or --sf where smaller), cut from the sql phase's SF 1:
+# 0.05 (FLEET_SF, or --sf where smaller), cut from the sql phase's SF 1:
 # each member's cold fill ships every KV pair through the Python wire
 # codec (~10 s per member at SF 0.1 on the CPU test box), and the SF 1
 # snapshot (~2 GB, ~70 s to write and as long to load) would take the
-# whole of the phase's budget
-FLEET_SF = 0.1
+# whole of the phase's budget; cut from SF 0.1 when the legs phase came
+FLEET_SF = 0.05
 # each SQL member's HBM block-cache budget: the store plane and both
 # members share one card, each with its own CUDA context
 FLEET_CACHE_BYTES = 2 << 30
@@ -3423,6 +3455,259 @@ def fleet_kernel_entries(fleet_shapes, timed, errs, held_on, dev,
     return out
 
 
+# The legs phase: skew_join at SF 1's sizes (400,000 facts, 20,000
+# dimension rows) with one timed device run and one host run a statement
+# (the north-star block's are 5 and 2), the kernel-only micro at 2^20
+# rows, multichip's planes of 1, 2, 4 and 8 shards on the card; every
+# other leg at the reference's defaults (tidb_tpu_torch.bench.LEGS)
+LEGS_SKEW_SF = 1.0
+LEGS_SKEW_ITERS = (1, 1)
+LEGS_INPROCESS = ("encoded", "trace", "profile", "serve", "chaos")
+
+
+def _headline(leg: str, line: dict) -> dict:
+    """A leg's line abridged to its headline numbers."""
+    d = line["detail"]
+    if leg == "encoded":
+        return {q: {k: v[k] for k in ("encoded_secs", "decoded_secs",
+                                      "speedup", "encoding_fallbacks")} |
+                {"bytes_ratio": v["bytes_touched"]["ratio"]}
+                for q, v in d["queries"].items()}
+    if leg == "trace":
+        q1 = d["latency_attribution"]["q1"]
+        return {"traces": d["traces"], "chrome_events": d["chrome_events"],
+                "q1_p99_ms": q1["statement"]["p99_ms"],
+                "q1_p99_coverage": q1.get("p99_coverage"),
+                "spans": d["trace_stmt_spans"]}
+    if leg == "profile":
+        return {k: d[k] for k in ("kernel_profile_rows",
+                                  "kernel_profile_families",
+                                  "statement_profile_rows",
+                                  "statement_profile_modes",
+                                  "compiles_after_cold",
+                                  "compiles_per_warm_iter", "roofline")}
+    if leg == "serve":
+        conc, pin = d["concurrent"], d["pinched"]
+        return {"serialized_rows_per_sec": d["serialized"]["rows_per_sec"],
+                "concurrent_rows_per_sec": conc["rows_per_sec"],
+                "speedup_vs_serialized": conc["speedup_vs_serialized"],
+                "latency": conc["latency"],
+                "sched_stall_seconds": conc["sched_stall_seconds"],
+                "pinched": {k: pin[k] for k in (
+                    "quota_bytes", "secs", "rows_per_sec", "completed",
+                    "admission", "busy_retries", "oom_cancels")},
+                "utilization": {k: d["utilization"][k] for k in (
+                    "device_busy_fraction", "device_busy_secs",
+                    "attribution_coverage")}}
+    if leg == "chaos":
+        return {k: d[k] for k in (
+            "secs", "ops_completed", "writes_completed", "retries",
+            "failpoints_armed", "failpoint_fires", "watchdog_fires",
+            "quarantines", "worker_restarts", "device_fallbacks",
+            "oom_cancels", "post_chaos_healthy", "sched_inflight_end",
+            "server_ledger_host_end", "server_ledger_device_end",
+            "passed")} | {"attribution_coverage":
+                          d["utilization"]["attribution_coverage"]}
+    if leg == "multichip":
+        return {"per_chip_ratio_1_to_n": d["per_chip_ratio_1_to_n"],
+                "serve_aggregate_by_n": d["serve_aggregate_by_n"],
+                "per_chip_rows_per_sec": {
+                    lg["n_devices"]: {q: v["per_chip_rows_per_sec"]
+                                      for q, v in lg["queries"].items()}
+                    for lg in d["legs"]},
+                "mesh_fallbacks": [lg["mesh_fallbacks"] for lg in d["legs"]],
+                "checks": d["checks"]}
+    if leg == "fleet":
+        return {"start_secs": d["start_secs"],
+                "rows_loaded": d["rows_loaded"],
+                "stmts_per_sec": {lg["servers"]: lg["stmts_per_sec"]
+                                  for lg in d["legs"]},
+                "latency": {lg["servers"]: lg["latency"]
+                            for lg in d["legs"]},
+                "scaling_max_vs_1": d["scaling_max_vs_1"],
+                "launches": {m: v["segsum_launches"]
+                             for m, v in d["kernel_launches"].items()}}
+    if leg == "htap":
+        return {r: {k: v[k] for k in ("analytic_rows_per_sec",
+                                      "vs_read_only", "freshness_ms_max")}
+                for r, v in d["rates"].items()}
+    return {}
+
+
+def legs_phase(args, dev, recorded, htap_sweep) -> tuple[dict, dict]:
+    """bench.py's other legs on the card, each as `python -m
+    tidb_tpu_torch.bench LEG` runs it (bench.run_leg), in process:
+    encoded, trace, profile, serve and chaos at the reference's
+    defaults, each on a store of its own; the skew_join block on a store
+    of its own at LEGS_SKEW_SF; the kernel-only micro at 2^20 rows (held
+    against numpy); multichip over planes of 1, 2, 4 and 8 shards on the
+    card; the fleet leg with four SQL members (each process's launches
+    from its /status); `python -m tidb_tpu_torch.bench trace` once as a
+    child; and check_htap's verdict on the htap phase's sweep. One line
+    per leg: its seconds and launches, its headline numbers, the
+    invariants of its contract that failed and its performance floors
+    with their verdicts. The phase fails on a leg that raised, a failed
+    invariant (a wrong result, a non-retryable error, a stuck statement,
+    an OOM cancel, a ledger or slot left, an encoding or mesh fallback,
+    an unbalanced trace tree, an empty kernel profile, attribution
+    coverage outside [0.9, 1.1]), a leg whose device statements did not
+    launch the segment-sum kernel (a fleet member's, on its /status), a
+    scheduler slot left after a leg, a pinched serve leg that never met
+    the retryable 9008 (its 8175 is an OOM cancel), a skew_join fallback
+    or a disagreeing micro. The floors (the fleet's 2.0x scaling, htap's 0.5
+    vs_read_only, multichip's 0.75 ratio and serve_scales) only print.
+    Its segment_sum calls go to recorded["legs"].
+    -> (the phase's line, the fleet members' launches by shape)."""
+    import gc
+    from tidb_tpu_torch import bench, sched
+    from tidb_tpu_torch.benchmarks import (contracts, htap, kernelmicro,
+                                           segsum_bench, skewjoin)
+    from tidb_tpu_torch.benchmarks.common import progress_printer
+    from tidb_tpu_torch.ops import segsum
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.store.storage import new_mock_storage
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"phase": "legs", "legs": {}}
+    bad = []
+    fleet_shapes = {}
+
+    def report(leg, seconds, launches, line=None, failures=(), **extra):
+        inv = contracts.invariants(list(failures))
+        flo = contracts.floors(list(failures))
+        rec = {"phase": "legs", "leg": leg, "seconds": seconds,
+               "launches": launches, **extra}
+        if line is not None:
+            rec.update(metric=line["metric"], value=line["value"],
+                       vs_baseline=line.get("vs_baseline"),
+                       headline=_headline(leg, line))
+        rec.update(invariants_failed=inv, floors_failed=flo,
+                   floors_verdict="held" if not flo else "missed")
+        emit(rec)
+        out["legs"][leg] = {"seconds": seconds, "launches": launches,
+                            "invariants_failed": len(inv),
+                            "floors_failed": len(flo)}
+        bad.extend(f"{leg}: {f}" for f in inv)
+        return rec
+
+    def slots_free(leg):
+        snap = sched.device_scheduler().snapshot()
+        if snap["inflight"] or snap["waiting"]:
+            bad.append(f"{leg}: scheduler slots left {snap}")
+
+    segsum.launches = 0
+    with segsum_bench.record_calls() as rec:
+        for leg in LEGS_INPROCESS:
+            l0, t0 = segsum.launches, time.perf_counter()
+            line, failures = bench.run_leg(leg, progress_printer(leg),
+                                           device=str(dev))
+            launched = segsum.launches - l0
+            if dev.type == "cuda" and not launched:
+                bad.append(f"{leg}: the segment-sum kernel never launched")
+            if leg == "serve" and dev.type == "cuda" and \
+                    not line["detail"]["pinched"]["busy_retries"]:
+                bad.append("serve: the pinched leg never met the "
+                           "retryable 9008")
+            report(leg, time.perf_counter() - t0, launched, line, failures)
+            slots_free(leg)
+
+        l0, t0 = segsum.launches, time.perf_counter()
+        storage = new_mock_storage(device=dev)
+        sess = Session(storage)
+        try:
+            sess.execute("CREATE DATABASE skew")
+            sess.execute("USE skew")
+            skew = skewjoin.run(sess, storage, LEGS_SKEW_SF,
+                                *LEGS_SKEW_ITERS, progress_printer("skew"))
+        finally:
+            sess.close()
+            storage.close()
+        launched = segsum.launches - l0
+        fb = {q: skew[q]["fallbacks"] for q in skewjoin.QUERIES}
+        if any(fb.values()):
+            bad.append(f"skew_join: device fallbacks {fb}")
+        if dev.type == "cuda" and not launched:
+            bad.append("skew_join: the segment-sum kernel never launched")
+        report("skew_join", time.perf_counter() - t0, launched,
+               rows=skew["rows"], headline={
+                   q: {k: skew[q][k] for k in (
+                       "device_secs", "host_secs", "speedup", "fallbacks",
+                       "partitions_spilled", "hot_lane_rows")}
+                   for q in skewjoin.QUERIES},
+               quota_spill=skew.get("quota_spill"))
+        slots_free("skew_join")
+
+        l0, t0 = segsum.launches, time.perf_counter()
+        micro = kernelmicro.run(device=dev)
+        err = kernelmicro.hold(micro["result"],
+                               kernelmicro.lineitem_chunk(micro["rows"]))
+        launched = segsum.launches - l0
+        if err > 1e-9 or (dev.type == "cuda" and not launched):
+            bad.append(f"kernel micro: relative error {err}, "
+                       f"{launched} launches")
+        report("kernel_only", time.perf_counter() - t0, launched,
+               kernel_only_q1_rows_per_sec=micro["rows_per_sec"],
+               rows=micro["rows"], iters=micro["iters"],
+               max_rel_err=err)
+
+        l0, t0 = segsum.launches, time.perf_counter()
+        line, failures = bench.run_leg("multichip",
+                                       progress_printer("multichip"),
+                                       device=str(dev))
+        launched = segsum.launches - l0
+        if dev.type == "cuda" and not launched:
+            bad.append("multichip: the segment-sum kernel never launched")
+        report("multichip", time.perf_counter() - t0, launched, line,
+               failures)
+        slots_free("multichip")
+        launched_here = segsum.launches
+    recorded["legs"] = recorded_path("legs", rec, launched_here)
+
+    t0 = time.perf_counter()
+    child_args = ["--device", str(dev)] if dev.type != "cuda" else []
+    line, failures = bench.run_leg("fleet", progress_printer("fleet"),
+                                   device=str(dev))
+    members = {m: v for m, v in line["detail"]["kernel_launches"].items()
+               if m != "store"}
+    for m, v in line["detail"]["kernel_launches"].items():
+        fleet_shapes[f"legs-fleet-{m}"] = v["segsum_shapes"]
+        if dev.type == "cuda" and m != "store" and not v["segsum_launches"]:
+            bad.append(f"fleet member {m}: the segment-sum kernel never "
+                       f"launched")
+    report("fleet", time.perf_counter() - t0,
+           {m: v["segsum_launches"]
+            for m, v in line["detail"]["kernel_launches"].items()},
+           line, failures, members=len(members))
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.run(
+        [sys.executable, "-m", "tidb_tpu_torch.bench", "trace",
+         *child_args], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    try:
+        cli_line = json.loads(child.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        cli_line = None
+    if child.returncode != 0 or cli_line is None or \
+            cli_line.get("metric") != "trace_bench_traces_retained":
+        bad.append(f"trace CLI: rc {child.returncode}, "
+                   f"{child.stderr[-500:]!r}")
+    report("trace_cli", time.perf_counter() - t0, None, returncode=
+           child.returncode, metric=None if cli_line is None else
+           cli_line.get("metric"), value=None if cli_line is None else
+           cli_line.get("value"))
+
+    line = htap.line(htap_sweep)
+    report("htap", 0.0, None, line, contracts.check("htap", line),
+           source="the htap phase's sweep")
+    out["seconds"] = sum(v["seconds"] for v in out["legs"].values())
+    if bad:
+        raise AssertionError(f"legs: {bad}")
+    return out, fleet_shapes
+
+
 def kernel_profile() -> dict:
     """The kernel-profile registry (tidb_tpu_torch.profiler) as the
     process's runs left it: per kernel family and plan, dispatches, busy
@@ -3667,12 +3952,17 @@ def main() -> int:
     emit(timed("store", store_phase, args, dev, recorded, **kept))
     out, kept = timed("htap", htap_phase, args, dev, recorded, **kept)
     emit(out)
+    htap_sweep = out["sweep"]
     out, kept = timed("sqlrest", sqlrest_phase, args, dev, recorded, **kept)
     emit(out)
     emit(timed("server", server_phase, args, dev, recorded, **kept))
     del kept    # the earlier phases' store and its HBM blocks go
     out, fleet_shapes = timed("fleet", fleet_phase, args, dev)
     emit(out)
+    out, legs_shapes = timed("legs", legs_phase, args, dev, recorded,
+                             htap_sweep)
+    emit(out)
+    fleet_shapes.update(legs_shapes)
     emit(timed("faults", faults_phase, args, dev))
     t_kernel = time.perf_counter()
 

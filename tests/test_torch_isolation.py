@@ -73,6 +73,40 @@ FLEET_SLICE = ("store/wire.py", "store/remote.py", "store/fleetcop.py",
                "server/xserver.py", "bench.py", "util/mysqlclient.py")
 
 
+# bench.py's other legs and their shared helpers, each scanned by the
+# test above; neither the JAX package's `bench.py` (a top-level `bench`)
+# nor `__graft_entry__.py` may be imported: the port keeps its own copies
+LEGS_SLICE = ("benchmarks/common.py", "benchmarks/kernelmicro.py",
+              "benchmarks/skewjoin.py", "benchmarks/encoded.py",
+              "benchmarks/tracing.py", "benchmarks/profiling.py",
+              "benchmarks/serve.py", "benchmarks/chaos.py",
+              "benchmarks/fleetbench.py", "benchmarks/multichip.py",
+              "benchmarks/contracts.py", "benchmarks/htap.py", "bench.py")
+
+
+@pytest.mark.parametrize("mod", LEGS_SLICE)
+def test_legs_slice_module_is_scanned(mod):
+    path = PKG / mod
+    assert path in set(PKG.rglob("*.py"))
+    names = list(_imports(path))
+    assert not [n for n in names if _forbidden(n)], mod
+    assert not [n for n in names
+                if n.split(".")[0] in ("__graft_entry__", "bench")], mod
+
+
+def test_bench_legs_without_a_card_refuse():
+    _no_cuda()
+    from tidb_tpu_torch.benchmarks import (chaos, encoded, fleetbench,
+                                           htap, kernelmicro, multichip,
+                                           profiling, serve, tracing)
+    for mod in (encoded, tracing, profiling, serve, chaos, multichip, htap,
+                fleetbench):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernelmicro.run(rows=16)
+
+
 @pytest.mark.parametrize("mod", FLEET_SLICE)
 def test_fleet_slice_module_is_scanned(mod):
     path = PKG / mod

@@ -21,7 +21,9 @@ writer on its own thread and session, one window per rate) and reports
 per rate the reference's fields: achieved writes/s, write p99, analytic
 rows/s, `vs_read_only`, freshness, delta serves, HBM hits and misses,
 plus the port's own per-window kernel launches, fallbacks and the
-largest statement ledger left.
+largest statement ledger left. `run` and `line` are the leg as
+`python -m tidb_tpu_torch.bench htap` runs it: a store of its own, the
+sweep with its utilization block, and `bench.py`'s htap line.
 
     python3 -m tidb_tpu_torch.benchmarks.htap [--rows 60000] [--secs 5]
         [--rates 0,20,100] [--device cuda]
@@ -37,8 +39,11 @@ import time
 
 import numpy as np
 
-__all__ = ["DDL", "ANALYTIC", "SEED", "stock_columns", "setup",
-           "write_statements", "StockMirror", "sweep", "percentile"]
+from tidb_tpu_torch.benchmarks.common import percentile
+
+__all__ = ["DDL", "ANALYTIC", "SEED", "METRIC", "stock_columns",
+           "setup", "write_statements", "StockMirror", "sweep", "run", "line",
+           "percentile"]
 
 DDL = ["CREATE TABLE stock (s_id BIGINT PRIMARY KEY, s_seg BIGINT, "
        "s_qty BIGINT, s_ytd DOUBLE, s_cnt BIGINT)",
@@ -129,13 +134,6 @@ def same_rows(got, truth, rel: float = 1e-9) -> bool:
                 not math.isclose(g[3], t[3], rel_tol=rel):
             return False
     return True
-
-
-def percentile(xs: list, p: float) -> float:
-    """Nearest-rank percentile over a non-empty list (bench.py's)."""
-    ys = sorted(xs)
-    i = min(math.ceil(p / 100.0 * len(ys)) - 1, len(ys) - 1)
-    return ys[max(i, 0)]
 
 
 def _counters() -> dict:
@@ -261,6 +259,62 @@ def sweep(session, storage, n_rows: int, rates=(0, 20, 100),
     out["delta_rows_staged_end"] = storage.delta_store.rows_current()
     out["committed"] = committed
     return out
+
+
+METRIC = "htap_analytic_rows_per_sec_under_writes"
+
+
+def run(progress=None, rows: int = 60000, secs: float = 5.0,
+        rates=(0, 20, 100), device="cuda") -> dict:
+    """The reference's `_htap_bench` (bench.py:438-622) on a store of its
+    own: setup, two warm analytic runs, the sweep and its utilization
+    block (analytic against write device time by digest). The final
+    rows must equal the numpy replay of the committed writes
+    (`equals_replay`). -> the line's detail."""
+    from tidb_tpu_torch import perfschema
+    from tidb_tpu_torch.benchmarks.common import (meter_mark,
+                                                  utilization_block)
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.store.storage import new_mock_storage
+    progress = progress or (lambda msg: None)
+    storage = new_mock_storage(device=device)
+    session = Session(storage)
+    try:
+        session.execute("CREATE DATABASE htap")
+        session.execute("USE htap")
+        progress(f"htap: loading {rows} stock rows")
+        mirror = setup(session, storage, rows)
+        progress("htap: warming (cache fill)")
+        session.query(ANALYTIC)
+        session.query(ANALYTIC)
+        digests = {perfschema.sql_digest(ANALYTIC)[0]: "analytic"}
+        for seq in (1, 2):
+            for sql in write_statements(seq, rows):
+                digests[perfschema.sql_digest(sql)[0]] = "write"
+        mark = meter_mark()
+        out = sweep(session, storage, rows, [int(r) for r in rates], secs,
+                    progress=progress)
+        out["utilization"] = utilization_block(mark, digests)
+        for seq, i in out.pop("committed"):
+            mirror.apply(seq, i)
+        out["equals_replay"] = same_rows(session.query(ANALYTIC).rows,
+                                         mirror.truth())
+    finally:
+        session.close()
+        storage.close()
+    return out
+
+
+def line(detail: dict) -> dict:
+    """bench.py's htap line around the detail (bench.py:637-647)."""
+    rates = detail.get("rates", {})
+    top = max((int(k) for k in rates), default=0)
+    return {"metric": METRIC,
+            "value": rates.get(str(top), {}).get("analytic_rows_per_sec",
+                                                 0.0),
+            "unit": "rows/s",
+            "vs_baseline": detail.get("min_vs_read_only", 0.0),
+            "detail": detail}
 
 
 def main() -> int:

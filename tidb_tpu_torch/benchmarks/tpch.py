@@ -37,7 +37,7 @@ from tidb_tpu_torch.sqltypes import (EvalType, FieldType, TypeCode,
                                      parse_datetime)
 
 __all__ = ["ScaledTpch", "DDL", "load", "as_session_rows", "Q1", "Q3",
-           "Q5", "TABLE_COLUMNS",
+           "Q5", "QUERIES", "TABLE_COLUMNS",
            "TABLE_IDS",
            "table_infos", "load_store", "q1_cop_plan", "q1_truth_of",
            "WriteBatch", "write_batch", "commit_batch", "Q1Mirror",
@@ -208,6 +208,9 @@ WHERE c_custkey = o_custkey
 GROUP BY n_name
 ORDER BY revenue DESC
 """
+
+# the bench legs' three queries by name (the JAX package's tpch.QUERIES)
+QUERIES = {"q1": Q1, "q3": Q3, "q5": Q5}
 
 # TPC-H Q18 adapted to the DDL above (it has no c_name or o_totalprice):
 # the IN subquery with GROUP BY ... HAVING cannot be decorrelated, so it

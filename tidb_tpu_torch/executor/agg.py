@@ -176,6 +176,8 @@ def superchunk_partials(chunks, filter_expr, group_exprs, aggs,
         if op is not None:
             runtime_stats.note_superchunk(op, sc.num_rows, sc.bucket,
                                           sc.sources)
+        runtime_stats.note_bytes_touched(memtrack.chunk_bytes(sc.chunk),
+                                         memtrack.device_put_bytes(sc.chunk))
         return tok
 
     def finalize(k, sc, pending):
@@ -471,6 +473,8 @@ class HashAgg:
             profiler.note_bytes(profiler.profile_of(k),
                                 nbytes=memtrack.device_put_bytes(sc.chunk))
             runtime_stats.note_superchunk(self, n, sc.bucket, sc.sources)
+            runtime_stats.note_bytes_touched(memtrack.chunk_bytes(sc.chunk),
+                                             k.input_nbytes(sc.chunk))
             return pk, tok
 
         def finalize(k, sc, tok):
@@ -662,6 +666,8 @@ class StreamAgg:
             profiler.note_bytes(profiler.profile_of(k), nbytes=db)
             runtime_stats.note_superchunk(self, sc.num_rows, sc.bucket,
                                           sc.sources)
+            runtime_stats.note_bytes_touched(memtrack.chunk_bytes(sc.chunk),
+                                             memtrack.device_put_bytes(sc.chunk))
             return tok
 
         def finalize(sc, tok):

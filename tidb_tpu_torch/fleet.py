@@ -47,6 +47,9 @@ from tidb_tpu_torch.util.mysqlclient import MiniClient
 __all__ = ["Fleet", "SQLMember"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# seconds a SQL member has to report its port: members start together,
+# and each one's interpreter and device context start share the host
+_MEMBER_START_S = 180.0
 
 
 def _child_env(extra=None) -> dict:
@@ -82,6 +85,7 @@ def _await_line(proc: subprocess.Popen, needle: str,
     reported this way: the children bind port 0), within `timeout`
     seconds whether or not the child prints anything."""
     deadline = time.monotonic() + timeout
+    seen: list = []
     while True:
         try:
             line = proc.lines.get(
@@ -92,9 +96,11 @@ def _await_line(proc: subprocess.Popen, needle: str,
         if line is None:
             rc = proc.wait(timeout=10)
             raise RuntimeError(f"fleet member exited (rc={rc}) before "
-                               f"reporting {needle!r}")
+                               f"reporting {needle!r}; its last output: "
+                               f"{''.join(seen[-12:])}")
         if needle in line:
             return line
+        seen.append(line)
 
 
 def _port_of(line: str) -> int:
@@ -160,19 +166,39 @@ class Fleet:
         # /cluster/state so cluster_* queries see store-side traces
         self.store_status_port = _port_of(
             _await_line(self.store_proc, "status API on"))
-        for i in range(self.n_sql):
-            self.members.append(self._spawn_sql(i))
+        # member 0 bootstraps the system catalog on the shared store
+        # alone; the others then start together, each paying its
+        # interpreter's and device context's start beside the others
+        if self.n_sql:
+            self.members.append(self._spawn_sql(0))
+        procs = [self._launch_sql() for _ in range(1, self.n_sql)]
+        try:
+            for i, proc in enumerate(procs, start=1):
+                self.members.append(self._ready(i, proc))
+        except BaseException:
+            # the ones not yet members: stop() knows only the members
+            for proc in procs[len(self.members) - 1:]:
+                proc.kill()
+                proc.wait(timeout=10)
+                proc.stdout.close()
+            raise
         return self
 
-    def _spawn_sql(self, index: int) -> SQLMember:
-        proc = _spawn(
+    def _launch_sql(self) -> subprocess.Popen:
+        return _spawn(
             [sys.executable, "-m", "tidb_tpu_torch",
              "--host", self.host, "--port", "0", "--status-port", "0",
              "--no-mesh", "--store", f"{self.host}:{self.store_port}",
              "--device", self.device, *self.sql_args], self.env)
-        port = _port_of(_await_line(proc, "MySQL protocol on"))
+
+    def _ready(self, index: int, proc: subprocess.Popen) -> SQLMember:
+        port = _port_of(_await_line(proc, "MySQL protocol on",
+                                    timeout=_MEMBER_START_S))
         status_port = _port_of(_await_line(proc, "status API on"))
         return SQLMember(index, proc, port, status_port)
+
+    def _spawn_sql(self, index: int) -> SQLMember:
+        return self._ready(index, self._launch_sql())
 
     def __enter__(self) -> "Fleet":
         return self.start()

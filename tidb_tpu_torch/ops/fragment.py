@@ -143,6 +143,15 @@ class ProbeAggKernel:
     def _probe_sub(self, chunk: Chunk) -> Chunk:
         return Chunk([chunk.columns[j] for j in self.probe_used])
 
+    def input_nbytes(self, chunk: Chunk) -> int:
+        """Device bytes of one dispatch's input lanes: the probe columns
+        the group and aggregate expressions read, plus the padded key
+        lanes (the bytes_touched figure; the JAX package's count)."""
+        from tidb_tpu_torch import memtrack
+        pb = runtime.bucket_size(max(chunk.num_rows, 1))
+        return memtrack.device_put_bytes(self._probe_sub(chunk), pb) + \
+            self.num_keys * 9 * pb
+
     # -- async dispatch / blocking finalize ----------------------------------
 
     def prepare_build(self, build: Chunk, build_keys, nb: int):
