@@ -164,10 +164,12 @@ Phases, one JSON line each:
   legs    bench.py's other legs on the card (legs_phase), each as
           `python -m tidb_tpu_torch.bench LEG` runs it
           (tidb_tpu_torch.bench.run_leg) at the reference's defaults:
-          encoded, trace, profile, serve and chaos in process, each on a
-          store of its own; the north-star line's skew_join block on a
-          store of its own at SF 1's sizes (400,000 facts, 20,000
-          dimension rows), device against host; the kernel-only Q1
+          encoded, trace, profile, lintcheck (the port's lint run clean as a
+          child process, 22 rules, and warm Q1/Q3 constructing no kernel
+          past the lint's static model), serve and chaos in process, each on
+          a store of its own; the north-star line's skew_join block on a
+          store of its own at SF 1's sizes (400,000 facts, 20,000 dimension
+          rows), device against host; the kernel-only Q1
           micro at 2^20 rows, held against numpy; multichip over planes
           of 1, 2, 4 and 8 shards on the card; the fleet leg with four
           SQL members (each process's launches from its /status); `python
@@ -178,12 +180,13 @@ Phases, one JSON line each:
           floors. An invariant fails the phase (a wrong result, a
           non-retryable error, a stuck statement, an OOM cancel, a
           ledger or slot left, an encoding or mesh fallback, an
-          unbalanced trace tree, an empty kernel profile, attribution
-          coverage outside [0.9, 1.1], a leg or a fleet member that
-          never launched the segment-sum kernel); the performance
-          floors (the fleet's 2.0x scaling, htap's 0.5 vs_read_only,
-          multichip's 0.75 ratio and serve_scales) print their verdicts
-          only
+          unbalanced trace tree, an empty kernel profile, a lint that
+          is not clean or a kernel family constructing past its static
+          model, attribution coverage outside [0.9, 1.1], a leg or a
+          fleet member that never launched the segment-sum kernel); the
+          performance floors (the fleet's 2.0x scaling, htap's 0.5
+          vs_read_only, multichip's 0.75 ratio and serve_scales) print
+          their verdicts only
   faults  the device plane under injected faults, on Q1 from a store of
           its own at SF 0.1 (CHECK_SF) on one fan-out thread: a dispatch
           fault once (retried on the card, no fallback), then in every
@@ -206,12 +209,12 @@ Phases, one JSON line each:
           cross join, per-chunk Q3 and Q5 and the loaded table's Q1, and
           the server phase's cold, warm and prepared Q1 and cold Q3 and
           Q5 over the wire, and the legs phase's in-process legs (path
-          "legs": encoded, trace, profile, serve, chaos, skew_join, the
-          kernel-only micro and multichip) gave it (their calls recorded
-          by segsum_bench.record_calls), and the fleet's processes and
-          the legs' fleet members reported (a shape no other path
-          recorded is held and timed on seeded inputs of that shape),
-          held again on those
+          "legs": encoded, trace, profile, lintcheck, serve, chaos,
+          skew_join, the kernel-only micro and multichip) gave it
+          (their calls recorded by segsum_bench.record_calls), and the
+          fleet's processes and the legs' fleet members reported (a shape no
+          other path recorded is held and timed on seeded inputs of that
+          shape), held again on those
           very inputs and timed: device time beside its host time per
           call, the plain version, one PyTorch library call and the bound
           (a shape that an earlier path already timed in the run carries
@@ -3462,7 +3465,8 @@ def fleet_kernel_entries(fleet_shapes, timed, errs, held_on, dev,
 # other leg at the reference's defaults (tidb_tpu_torch.bench.LEGS)
 LEGS_SKEW_SF = 1.0
 LEGS_SKEW_ITERS = (1, 1)
-LEGS_INPROCESS = ("encoded", "trace", "profile", "serve", "chaos")
+LEGS_INPROCESS = ("encoded", "trace", "profile", "lintcheck", "serve",
+                  "chaos")
 
 
 def _headline(leg: str, line: dict) -> dict:
@@ -3486,6 +3490,11 @@ def _headline(leg: str, line: dict) -> dict:
                                   "statement_profile_modes",
                                   "compiles_after_cold",
                                   "compiles_per_warm_iter", "roofline")}
+    if leg == "lintcheck":
+        return {k: d[k] for k in (
+            "lint_clean", "lint_rules", "lint_seconds", "traced_sites",
+            "families_checked", "compiles_after_cold",
+            "compiles_after_warm", "rows_over_bound", "segsum_launches")}
     if leg == "serve":
         conc, pin = d["concurrent"], d["pinched"]
         return {"serialized_rows_per_sec": d["serialized"]["rows_per_sec"],
@@ -3536,27 +3545,28 @@ def _headline(leg: str, line: dict) -> dict:
 
 def legs_phase(args, dev, recorded, htap_sweep) -> tuple[dict, dict]:
     """bench.py's other legs on the card, each as `python -m
-    tidb_tpu_torch.bench LEG` runs it (bench.run_leg), in process:
-    encoded, trace, profile, serve and chaos at the reference's
-    defaults, each on a store of its own; the skew_join block on a store
-    of its own at LEGS_SKEW_SF; the kernel-only micro at 2^20 rows (held
-    against numpy); multichip over planes of 1, 2, 4 and 8 shards on the
-    card; the fleet leg with four SQL members (each process's launches
-    from its /status); `python -m tidb_tpu_torch.bench trace` once as a
-    child; and check_htap's verdict on the htap phase's sweep. One line
-    per leg: its seconds and launches, its headline numbers, the
-    invariants of its contract that failed and its performance floors
-    with their verdicts. The phase fails on a leg that raised, a failed
-    invariant (a wrong result, a non-retryable error, a stuck statement,
-    an OOM cancel, a ledger or slot left, an encoding or mesh fallback,
-    an unbalanced trace tree, an empty kernel profile, attribution
-    coverage outside [0.9, 1.1]), a leg whose device statements did not
-    launch the segment-sum kernel (a fleet member's, on its /status), a
-    scheduler slot left after a leg, a pinched serve leg that never met
-    the retryable 9008 (its 8175 is an OOM cancel), a skew_join fallback
-    or a disagreeing micro. The floors (the fleet's 2.0x scaling, htap's 0.5
-    vs_read_only, multichip's 0.75 ratio and serve_scales) only print.
-    Its segment_sum calls go to recorded["legs"].
+    tidb_tpu_torch.bench LEG` runs it (bench.run_leg), in process: encoded,
+    trace, profile, lintcheck, serve and chaos at the reference's defaults,
+    each on a store of its own; the skew_join block on a store of its own at
+    LEGS_SKEW_SF; the kernel-only micro at 2^20 rows (held against numpy);
+    multichip over planes of 1, 2, 4 and 8 shards on the card; the fleet leg
+    with four SQL members (each process's launches from its /status);
+    `python -m tidb_tpu_torch.bench trace` once as a child; and check_htap's
+    verdict on the htap phase's sweep. One line per leg: its seconds and
+    launches, its headline numbers, the invariants of its contract that
+    failed and its performance floors with their verdicts. The phase fails
+    on a leg that raised, a failed invariant (a wrong result, a non-
+    retryable error, a stuck statement, an OOM cancel, a ledger or slot
+    left, an encoding or mesh fallback, an unbalanced trace tree, an empty
+    kernel profile, a lint that is not clean or a kernel family constructing
+    past the lint's static model, attribution coverage outside [0.9, 1.1]),
+    a leg whose device statements did not launch the segment-sum kernel (a
+    fleet member's, on its /status), a scheduler slot left after a leg, a
+    pinched serve leg that never met the retryable 9008 (its 8175 is an OOM
+    cancel), a skew_join fallback or a disagreeing micro. The floors (the
+    fleet's 2.0x scaling, htap's 0.5 vs_read_only, multichip's 0.75 ratio
+    and serve_scales) only print. Its segment_sum calls go to
+    recorded["legs"].
     -> (the phase's line, the fleet members' launches by shape)."""
     import gc
     from tidb_tpu_torch import bench, sched

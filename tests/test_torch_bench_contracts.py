@@ -5,9 +5,10 @@ JAX package's `scripts/<leg>_bench.sh`: it passes on the line each leg
 prints here at a tiny size and fails on the same line doctored to show
 what the script catches (a wrong result, a coverage of 0.5, an
 encoding fallback, a reason="mesh" fallback, a ledger left above zero,
-...). The encoded, trace and profile lines carry every key of the line
-that `python bench.py <leg>` prints (run as a subprocess on the CPU, so
-its compile-cache setting never reaches this process). `python -m
+...). The encoded, trace, profile and lintcheck lines carry every key
+of the line that `python bench.py <leg>` prints (run as a subprocess on
+the CPU, so its compile-cache setting never reaches this process; the
+lint's rule timings are keyed by the port's catalog). `python -m
 tidb_tpu_torch.bench LEG --device cpu` prints the line; without a card
 and without `--device cpu` it exits non-zero and prints nothing; a leg
 whose contract fails, and a north-star run whose block raised, print
@@ -36,6 +37,7 @@ TINY = {
     "encoded": dict(sf=SF, iters=2),
     "trace": dict(sf=SF, iters=2, lookups=4),
     "profile": dict(sf=SF, iters=2),
+    "lintcheck": dict(sf=SF, iters=2),
     "serve": dict(clients=2, rounds=1, lookups=2, sf=SF),
     # 100 writes/s: the seeded schedule arms delta/merge first, and the
     # writer reaches the 64-row merge well inside the window
@@ -49,7 +51,9 @@ REF_ENV = {"encoded": {"BENCH_ENCODED_SF": str(SF), "BENCH_ENCODED_ITERS": "2"},
            "trace": {"BENCH_TRACE_SF": str(SF), "BENCH_TRACE_ITERS": "2",
                      "BENCH_TRACE_LOOKUPS": "4"},
            "profile": {"BENCH_PROFILE_SF": str(SF),
-                       "BENCH_PROFILE_ITERS": "2"}}
+                       "BENCH_PROFILE_ITERS": "2"},
+           "lintcheck": {"BENCH_LINTCHECK_SF": str(SF),
+                         "BENCH_LINTCHECK_ITERS": "2"}}
 REF_VARS = {"TIDB_TPU_DEVICE_MIN_ROWS": "1",
             "TIDB_TPU_SUPERCHUNK_ROWS": "4096"}
 
@@ -111,6 +115,13 @@ DOCTORED = [
      "did not pass"),
     ("profile", lambda l: _doctor(l, ("detail", "statement_profile_rows"), 0),
      "memo empty"),
+    ("lintcheck", lambda l: _doctor(l, ("detail", "lint_clean"), False),
+     "reported findings"),
+    ("lintcheck", lambda l: _doctor(l, ("detail", "rows_over_bound"),
+                                    [["hashagg", "0123456789abcdef", 2]]),
+     "per-row bound"),
+    ("lintcheck", lambda l: _doctor(l, ("value",), 0),
+     "no kernel family"),
     ("htap", _htap_recold, "re-colded"),
 ]
 
@@ -166,7 +177,14 @@ def test_line_has_the_reference_legs_keys(leg, lines):
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     ref = json.loads(out.stdout.strip().splitlines()[-1])
-    assert not missing_keys(key_tree(ref), key_tree(lines[leg][0]))
+    want = key_tree(ref)
+    if leg == "lintcheck":
+        # rule timings are keyed by rule name: the port's catalog holds
+        # inplace-safety where the reference's holds donation-safety
+        ms = want["detail"]["lint_rule_ms"]
+        ms["inplace-safety"] = ms.pop("donation-safety")
+        assert set(ms) == set(lines[leg][0]["detail"]["lint_rule_ms"])
+    assert not missing_keys(want, key_tree(lines[leg][0]))
     if leg == "encoded":
         # the encoded dispatches' bytes, Q3's fused fragment included,
         # are the reference's to the byte

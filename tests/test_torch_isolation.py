@@ -81,7 +81,16 @@ LEGS_SLICE = ("benchmarks/common.py", "benchmarks/kernelmicro.py",
               "benchmarks/tracing.py", "benchmarks/profiling.py",
               "benchmarks/serve.py", "benchmarks/chaos.py",
               "benchmarks/fleetbench.py", "benchmarks/multichip.py",
-              "benchmarks/contracts.py", "benchmarks/htap.py", "bench.py")
+              "benchmarks/contracts.py", "benchmarks/htap.py", "bench.py",
+              "benchmarks/lintcheck.py")
+
+# the lint suite, its sanitizer and the race harness's helper, each
+# scanned by the test above: they import nothing of the JAX package's
+# `tidb_tpu/lint` (the port keeps its own copy) and the lint imports no
+# torch but through the live registry one rule reads
+LINT_SLICE = tuple(sorted(
+    p.relative_to(PKG).as_posix() for p in (PKG / "lint").rglob("*.py"))) + \
+    ("util/lockorder.py", "util/racecheck.py")
 
 
 @pytest.mark.parametrize("mod", LEGS_SLICE)
@@ -94,13 +103,49 @@ def test_legs_slice_module_is_scanned(mod):
                 if n.split(".")[0] in ("__graft_entry__", "bench")], mod
 
 
+@pytest.mark.parametrize("mod", LINT_SLICE)
+def test_lint_slice_module_is_scanned(mod):
+    path = PKG / mod
+    assert path in set(PKG.rglob("*.py"))
+    names = list(_imports(path))
+    assert not [n for n in names if _forbidden(n)], mod
+    assert "torch" not in {n.split(".")[0] for n in names}, mod
+
+
+_LINT_RUN = r"""
+import json, sys
+from tidb_tpu_torch.lint import run
+from tidb_tpu_torch.util import lockorder
+rep = run()
+assert rep.clean, rep.findings[:3]
+assert len(rep.rules_run) == 22
+assert lockorder.static_dag()["edges"]
+with lockorder.sanitize():
+    from tidb_tpu_torch.memtrack import MemTracker
+    MemTracker("probe").consume(host=1)
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in
+                        ("jax", "jaxlib", "tidb_tpu", "tests"))))
+"""
+
+
+def test_port_lint_and_sanitizer_load_no_reference_module():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-c", _LINT_RUN], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_bench_legs_without_a_card_refuse():
     _no_cuda()
     from tidb_tpu_torch.benchmarks import (chaos, encoded, fleetbench,
-                                           htap, kernelmicro, multichip,
-                                           profiling, serve, tracing)
+                                           htap, kernelmicro, lintcheck,
+                                           multichip, profiling, serve,
+                                           tracing)
     for mod in (encoded, tracing, profiling, serve, chaos, multichip, htap,
-                fleetbench):
+                fleetbench, lintcheck):
         with pytest.raises(RuntimeError, match="CUDA"):
             mod.run()
     with pytest.raises(RuntimeError, match="CUDA"):

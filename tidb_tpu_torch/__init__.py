@@ -10,3 +10,12 @@ points run on CUDA unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"
+
+# Debug lock-order sanitizer (default off, zero overhead): with
+# TIDB_TPU_LOCK_SANITIZER=1 the threading lock factories are patched
+# here — before any runtime module constructs its locks — so every
+# registered lock created from now on is order-checked against the
+# statically-derived DAG (docs/CONCURRENCY_TORCH.md, util/lockorder.py).
+from tidb_tpu_torch.util import lockorder as _lockorder  # noqa: E402
+
+_lockorder.enable_from_env()

@@ -33,13 +33,14 @@ one JSON line with `bench.py`'s keys:
     the micro); the line is still printed, and the run then exits 1
     (the reference exits 0).
 
-LEG is one of serve, fleet, encoded, chaos, trace, profile, multichip and
-htap: `benchmarks/<module>.run` with the flags of `LEGS` (the reference's
-BENCH_* knobs, one for one, with their defaults), printing `bench.py`'s
-line for that leg (the same `metric`, `unit`, `value`, `vs_baseline`
-where the reference has it, and `detail`). After printing it, the leg
-exits 1 when its `benchmarks/contracts.check_<leg>` (the port of
-`scripts/<leg>_bench.sh`'s assertions) fails, and names each failure on
+LEG is one of serve, fleet, encoded, chaos, trace, profile, lintcheck,
+multichip and htap: `benchmarks/<module>.run` with the flags of `LEGS`
+(the reference's BENCH_* knobs, one for one, with their defaults),
+printing `bench.py`'s line for that leg (the same `metric`, `unit`,
+`value`, `vs_baseline` where the reference has it, and `detail`). After
+printing it, the leg exits 1 when its `benchmarks/contracts.check_<leg>`
+(the port of `scripts/<leg>_bench.sh`'s assertions, lintcheck's from
+`scripts/lint_device_bench.sh`) fails, and names each failure on
 stderr; the reference leaves that check to its script.
 
 Unlike `bench.py`, it never falls back to the CPU: without CUDA it
@@ -195,6 +196,7 @@ LEGS = {
     "trace": ("tracing", (("sf", float, 0.02), ("iters", int, 3),
                           ("lookups", int, 16))),
     "profile": ("profiling", (("sf", float, 0.02), ("iters", int, 3))),
+    "lintcheck": ("lintcheck", (("sf", float, 0.02), ("iters", int, 2))),
     "multichip": ("multichip", (("devs", "ints", "1,2,4,8"),
                                 ("sf", float, 0.05), ("iters", int, 3),
                                 ("serve_rounds", int, 32))),

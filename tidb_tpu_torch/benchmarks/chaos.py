@@ -24,6 +24,7 @@ import time
 
 import numpy as np
 
+from tidb_tpu_torch import metrics
 from tidb_tpu_torch.benchmarks.common import (meter_mark, metric_total,
                                               point_sql, rows_match,
                                               trace_attribution, trace_mark,
@@ -37,7 +38,7 @@ SEED = 20260804
 N_STOCK = 12000
 STOCK_SQL = ("SELECT s_seg, COUNT(*), SUM(s_qty) FROM stock "
              "GROUP BY s_seg ORDER BY s_seg")
-OOM_KEY = 'tidb_tpu_mem_quota_exceeded_total{action="cancel"}'
+OOM_KEY = metrics.MEM_QUOTA_EXCEEDED + '{action="cancel"}'
 
 
 def schedule(rng: random.Random, timeout_ms: int) -> list:
@@ -153,6 +154,7 @@ def run(progress=None, seed: int = SEED, clients: int = 4,
                         return
                     name, mk, hold = sched_list[i]
                     spec = mk()
+                    # lint: exempt[failpoint-discipline] the chaos driver arms its seeded schedule: each name is a literal of schedule(), and enable() rejects undeclared ones
                     failpoint.enable(name, spec)
                     armed_log.append(f"{name}={spec}")
                     if hold is None:
@@ -163,6 +165,7 @@ def run(progress=None, seed: int = SEED, clients: int = 4,
                                 name in failpoint.armed() and \
                                 not stop.is_set():
                             stop.wait(0.1)
+                    # lint: exempt[failpoint-discipline] disarms the schedule entry armed above (a literal of schedule())
                     failpoint.disable(name)
                     if stop.wait(rng.uniform(0.0, 0.05)):
                         return

@@ -1,6 +1,6 @@
 """The bench legs' contracts: the assertions of the JAX package's
 `scripts/{serve,chaos,fleet,trace,profile,encoded,multichip,htap}_bench.sh`
-as functions over a leg's JSON line.
+and `scripts/lint_device_bench.sh` as functions over a leg's JSON line.
 
 `check_<leg>(line) -> list[str]` returns the failures, empty when the
 line holds, with the scripts' defaults. A failure that is a performance
@@ -16,7 +16,7 @@ import os
 __all__ = ["FLOOR", "SERVE_P99_FLOOR_MS", "FLEET_SCALING_FLOOR",
            "FLEET_P99_FLOOR_MS", "HTAP_VS_FLOOR", "HTAP_FRESHNESS_CEIL_MS",
            "MULTICHIP_RATIO_FLOOR", "COVERAGE", "CHECKS", "check",
-           "invariants", "floors"]
+           "check_lintcheck", "invariants", "floors"]
 
 FLOOR = "floor: "
 SERVE_P99_FLOOR_MS = 60000.0
@@ -189,6 +189,22 @@ def check_profile(line: dict) -> list[str]:
     return out
 
 
+def check_lintcheck(line: dict) -> list[str]:
+    """scripts/lint_device_bench.sh."""
+    d = line["detail"]
+    out = []
+    if not d.get("passed"):
+        out.append(f"lintcheck did not pass: {d.get('failures')}")
+    if not line["value"] > 0:
+        out.append("cross-check verified no kernel family")
+    if not d["lint_clean"]:
+        out.append("lint --json reported findings")
+    if d["rows_over_bound"]:
+        out.append(f"rows constructed past the per-row bound: "
+                   f"{d['rows_over_bound']}")
+    return out
+
+
 def check_encoded(line: dict) -> list[str]:
     """scripts/encoded_bench.sh."""
     qs = line["detail"]["queries"]
@@ -272,6 +288,7 @@ def check_htap(line: dict, vs_floor: float = HTAP_VS_FLOOR,
 
 CHECKS = {"serve": check_serve, "chaos": check_chaos, "fleet": check_fleet,
           "trace": check_trace, "profile": check_profile,
+          "lintcheck": check_lintcheck,
           "encoded": check_encoded, "multichip": check_multichip,
           "htap": check_htap}
 

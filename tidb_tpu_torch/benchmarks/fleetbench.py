@@ -19,6 +19,7 @@ from __future__ import annotations
 import json
 import time
 
+from tidb_tpu_torch import metrics
 from tidb_tpu_torch.benchmarks.common import lat_summary, metric_total
 from tidb_tpu_torch.benchmarks.serve import client_ops, replay
 
@@ -29,6 +30,7 @@ METRIC = "fleet_stmts_per_sec"
 # each SQL member's HBM block-cache budget: the store plane and every
 # member share one card, each with its own CUDA context
 MEMBER_CACHE_BYTES = 2 << 30
+_CACHE_VAR = "tidb_tpu_device_cache_bytes"
 
 
 def leg_counts(servers: int) -> list[int]:
@@ -60,8 +62,7 @@ def run(progress=None, servers: int = 4, clients: int = 8, rounds: int = 2,
     total_stmts = sum(len(ops) for ops in all_ops)
     progress(f"fleet: starting store plane + {servers} SQL servers")
     fleet = Fleet(n_sql=servers, device=device,
-                  sql_args=["--set", "tidb_tpu_device_cache_bytes="
-                            f"{MEMBER_CACHE_BYTES}"])
+                  sql_args=["--set", f"{_CACHE_VAR}={MEMBER_CACHE_BYTES}"])
     out: dict = {"servers": servers, "clients": clients, "rounds": rounds,
                  "lookups_per_round": lookups, "sf": sf,
                  "stmts_per_leg": total_stmts}
@@ -165,9 +166,9 @@ def run(progress=None, servers: int = 4, clients: int = 8, rounds: int = 2,
                 "patched_rows": int(metric_total(
                     snap, "tidb_tpu_fleet_journal_patched_rows_total")),
                 "local_cop": int(snap.get(
-                    'tidb_tpu_fleet_local_cop_total{path="cached"}', 0)),
+                    metrics.FLEET_LOCAL_COP + '{path="cached"}', 0)),
                 "store_cop": int(snap.get(
-                    'tidb_tpu_fleet_local_cop_total{path="store"}', 0)),
+                    metrics.FLEET_LOCAL_COP + '{path="store"}', 0)),
                 "delta_serves": int(metric_total(
                     snap, "tidb_tpu_cache_served_with_delta_total"))}
             launches[str(mi)] = {"segsum_launches":

@@ -17,6 +17,7 @@ from __future__ import annotations
 import threading
 import time
 
+from tidb_tpu_torch import metrics
 from tidb_tpu_torch.benchmarks.common import (lat_summary, meter_mark,
                                               point_sql, trace_attribution,
                                               trace_mark, utilization_block)
@@ -25,7 +26,7 @@ __all__ = ["METRIC", "OOM_KEY", "client_ops", "run_ops",
            "replay", "run", "line"]
 
 METRIC = "serve_concurrent_rows_per_sec"
-OOM_KEY = 'tidb_tpu_mem_quota_exceeded_total{action="cancel"}'
+OOM_KEY = metrics.MEM_QUOTA_EXCEEDED + '{action="cancel"}'
 
 
 def client_ops(data, ci: int, rounds: int, lookups: int) -> list:

@@ -443,6 +443,7 @@ class HashJoin:
                                          ctx.stats, hot_hashes=hot, h=h,
                                          plan=self)
 
+    # lint: exempt[memtrack-alloc] pair-index buffers are billed at dispatch (cap*17 inside dispatch_nbytes); staged sub-chunks consume on mt_node below
     def _hybrid_probe(self, ctx, probe_iter, build, hyb, enc,
                       matched_build):
         """Partitioned probe over a HybridJoinBuild.
@@ -706,6 +707,7 @@ class HashJoin:
                  for c in build.columns]
         return Chunk(cols)
 
+    # lint: exempt[memtrack-alloc] all-NULL side of an outer join's emit: join-emit padding over the tracked build, the one helper the emit and the right-unmatched pass share
     @staticmethod
     def _null_columns(schema, n: int):
         """All-NULL columns for an outer join's missing side."""
@@ -749,6 +751,7 @@ class MergeJoin(HashJoin):
     widest equal-key run). Matching is one vectorized searchsorted per
     left chunk, on the host (the inputs are already sorted)."""
 
+    # lint: exempt[memtrack-alloc] merge window concatenation billed via track_to on the window buffer
     def chunks(self, ctx):
         right_iter = self.right.chunks(ctx)
         window = None          # right rows that may still match

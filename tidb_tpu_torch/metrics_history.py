@@ -74,6 +74,7 @@ class _Ring:
     def append(self, t: float, point: dict) -> None:
         cost = _POINT_EST_BYTES * max(len(point), 1)
         node = self._tracker()
+        # lint: exempt[paired-resource] ownership transfer: point bytes release on evict (below) / shed / reset
         node.consume(host=cost)
         cap = config.metrics_history_points()
         evicted = 0

@@ -19,8 +19,8 @@ codes (what `runtime.device_put_chunk` ships), so:
 * `decode_codes` is the full-column late-materializer.
 
 Anything outside this vocabulary returns None and the caller runs the
-decoded path. The JAX package's lint registry of late-materialize sites
-(`LATE_MATERIALIZE`) is not carried: the port has no lint yet.
+decoded path. `LATE_MATERIALIZE` registers the sanctioned full-column
+decode sites for the `decode-discipline` lint rule.
 """
 
 from __future__ import annotations
@@ -33,13 +33,24 @@ from tidb_tpu_torch.expression.core import (ColumnRef, Constant, Op,
 from tidb_tpu_torch.sqltypes import EvalType, TypeCode, new_int_field
 
 __all__ = ["CodeColumnRef", "translate_filter", "code_translation",
-           "encoded_lane", "decode_codes", "MISSING_CODE"]
+           "encoded_lane", "decode_codes", "MISSING_CODE",
+           "LATE_MATERIALIZE"]
 
 # a code no live row ever carries (live codes >= 0, NULL is -1): an
 # encoded constant absent from the dictionary compares equal to nothing
 MISSING_CODE = -2
 
 _CODE_FT = new_int_field()
+
+# (repo-relative file, function name) of every sanctioned full-column
+# decode site — the decode-discipline lint rule exempts decode-shaped
+# gathers inside these functions and flags them everywhere else in
+# ops/ + store/copr.py. finalize_group_result decodes representative
+# rows only, but owns the one place agg outputs late-materialize.
+LATE_MATERIALIZE = frozenset({
+    ("tidb_tpu_torch/ops/encoded.py", "decode_codes"),
+    ("tidb_tpu_torch/ops/hashagg.py", "finalize_group_result"),
+})
 
 
 class CodeColumnRef(ColumnRef):
@@ -197,6 +208,7 @@ def code_translation(src_values: list, dst_values: list, ci: bool,
     O(|dst|) rebuild."""
     if dst_map is None:
         dst_map = _dict_map(dst_values, ci)
+    # lint: exempt[memtrack-alloc] dictionary-sized (distinct values), not row-sized
     t = np.empty(len(src_values) + 1, dtype=np.int64)
     for c, v in enumerate(src_values):
         hit = dst_map.get(_dict_key(v, ci))
@@ -208,6 +220,7 @@ def code_translation(src_values: list, dst_values: list, ci: bool,
 def decode_codes(values: list, codes: np.ndarray) -> np.ndarray:
     """Gather dictionary values by code into an object array (NULL/-1 and
     no-match codes decode to None). Only at operator-output boundaries."""
+    # lint: exempt[memtrack-alloc] dictionary-sized decode table; the gathered output aliases existing values
     table = np.empty(len(values) + 1, dtype=object)
     for c, v in enumerate(values):
         table[c] = v

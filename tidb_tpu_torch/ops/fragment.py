@@ -237,7 +237,7 @@ def fragment_kernel_for(num_keys: int, probe_width: int, width: int,
     direct_limit = config.direct_agg_slots()
     force_hash = capacity > direct_limit and _direct_group_mode(group_exprs)
 
-    from tidb_tpu_torch import profiler
+    from tidb_tpu_torch import devplane, profiler
     made = []
 
     def make():
@@ -254,7 +254,8 @@ def fragment_kernel_for(num_keys: int, probe_width: int, width: int,
         k._profile = prof
         return k
     key = (fp, num_keys, probe_width, width, capacity, force_hash,
-           direct_limit, str(device))
+           direct_limit, str(device),
+           devplane.mesh_fingerprint(process=True))
     k = _FRAGMENTS.get_or_create(key, make)
     prof = profiler.profile(
         "fragment", f"{fp}|{num_keys}|{probe_width}|{width}|{capacity}"

@@ -89,6 +89,7 @@ def _splitmix(h):
     return h ^ _srl(h, 31)
 
 
+# lint: exempt[dtype-discipline] row hashes are int64 by contract: splitmix64 bit patterns, sentinel headroom at both int64 extremes (this helper feeds _hash_keys its 64-bit words)
 def _key_bits(d):
     """Exact 64-bit pattern of a key lane (as int64): floats are bitcast,
     with -0.0 normalized to +0.0 first since SQL treats them as equal."""
@@ -98,6 +99,7 @@ def _key_bits(d):
     return d.to(torch.int64)
 
 
+# lint: exempt[dtype-discipline] row hashes are int64 by contract: splitmix64 bit patterns, sentinel headroom at both int64 extremes
 def _hash_keys(key_cols, n, seed: int, device):
     """Combine (data, valid) key lanes into one int64 hash per row,
     bit-identical to the JAX package's `_hash_keys(np, ...)`. Validity
@@ -157,6 +159,7 @@ def _direct_group_mode(group_exprs) -> bool:
                for g in group_exprs)
 
 
+# lint: exempt[dtype-discipline] group codes carry exact int64 key values (scaled decimals / epoch-micros exceed float range)
 def _direct_group_table(xp, group_exprs, cols, n, mask, C):
     """Direct-indexed group table -> (uniq[C], inv[n] int32, tot).
     Strides come from data maxima. Slot C-1 is the masked-rows slot;
@@ -198,6 +201,7 @@ def _cond_direct_mode(group_exprs) -> bool:
     return True
 
 
+# lint: exempt[dtype-discipline] exact int64 key codes + float64 span product (span overflow check must not round at 2^53)
 def _cond_group_table(xp, group_exprs, cols, n, mask, h, C,
                       direct_limit=None):
     """Runtime-selected group table: if the keys' (min..max) span product
@@ -244,6 +248,7 @@ def _cond_group_table(xp, group_exprs, cols, n, mask, h, C,
             torch.where(small, d_tot, h_tot))
 
 
+# lint: exempt[dtype-discipline] packed sort rides the int64 hash lanes (row index bit-packed into the low hash bits)
 def _group_table(x, m, C, mask=None):
     """Dense group-id table from one PACKED sort: the hash is quantized to
     (64 - ceil_log2(m)) bits, the element index rides the freed low bits,
@@ -319,6 +324,7 @@ class _SegBatch:
         self._reqs.append((op, x, valid))
         return len(self._reqs) - 1
 
+    # lint: exempt[dtype-discipline] scatter_reduce (the MIN/MAX segment path) takes int64 index tensors: the segment ids widen once per batch
     def run(self) -> None:
         out: list = [None] * len(self._reqs)
         groups: dict = {}
@@ -354,6 +360,7 @@ class _SegBatch:
         return self._out[i]
 
 
+# lint: exempt[dtype-discipline] int64 sum lanes: decimal sums exceed 2^53, float64 promotion would corrupt them
 def _agg_requests(xp, agg: AggDesc, cols, n, mask, batch: _SegBatch,
                   arange=None, offs=None, row_ids=None):
     """Phase 1 of an aggregate's partial-state lanes: enqueue the per-row
@@ -488,6 +495,7 @@ def finalize_group_result(chunk: Chunk, group_exprs, aggs, gidx: np.ndarray,
     return GroupResult(keys=keys, partials=partials, counts=counts)
 
 
+# lint: exempt[dtype-discipline] int64 slot init: group slots hold exact key codes and decimal sums
 def group_partial(xp, group_exprs, aggs, cols, n, mask, capacity,
                   force_hash: bool = False, direct_limit=None):
     """Group table (direct-indexed / runtime-selected / packed-sort per
@@ -534,6 +542,7 @@ def group_partial(xp, group_exprs, aggs, cols, n, mask, capacity,
 # -- one readback per dispatch ----------------------------------------------
 
 
+# lint: exempt[dtype-discipline] the one readback buffer is 8-byte words: bool and int lanes widen so every lane shares one int64 packing and one copy back
 def _pack(tree):
     """Flatten a result tree of tensors into ONE int64 device buffer
     (float64 lanes by bit view, bools and scalars widened), so finalize
@@ -676,6 +685,7 @@ class ScalarAggKernel:
         _validate_device_exprs(filter_expr, [], self.aggs)
         self.used = _columns_used(filter_expr, [], self.aggs)
 
+    # lint: exempt[dtype-discipline] int64 COUNT lane: exact even past 2^53 rows, matches the agg-state stacking dtype
     def _kernel(self, cols, nrows):
         n = next(c for c in cols if c is not None)[0].shape[0]
         xp = tnp.on(self.device)
@@ -753,7 +763,7 @@ def kernel_for(filter_expr, group_exprs, aggs, capacity: int = 4096,
     force_hash = bool(group_exprs) and capacity > direct_limit and \
         _direct_group_mode(group_exprs)
 
-    from tidb_tpu_torch import profiler
+    from tidb_tpu_torch import devplane, profiler
     family = "hashagg" if group_exprs else "scalaragg"
     made = []
 
@@ -773,7 +783,8 @@ def kernel_for(filter_expr, group_exprs, aggs, capacity: int = 4096,
         k._profile = prof
         return k
     key = (fp, capacity if group_exprs else 0, force_hash,
-           direct_limit if group_exprs else 0, str(device))
+           direct_limit if group_exprs else 0, str(device),
+           devplane.mesh_fingerprint(process=True))
     k = _KERNELS.get_or_create(key, make)
     # profile rows key on the same identity as the cache slot; a cache
     # miss (`made` fired) is one construction

@@ -102,6 +102,7 @@ def _host_agg_vectorized(chunk: Chunk, mask, group_exprs, aggs
     return GroupResult(keys=keys, partials=partials, counts=counts)
 
 
+# lint: exempt[memtrack-alloc] group-count-scaled agg outputs, bounded by the tracked agg state
 def _agg_lanes_vectorized(a: AggDesc, chunk, rows, starts, gid, ngroups,
                           counts):
     """One aggregate's partial lanes over sorted segments (layout matches

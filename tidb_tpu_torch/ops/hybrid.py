@@ -266,6 +266,7 @@ class HybridJoinBuild:
         if self._node is None or not delta:
             return
         if delta > 0:
+            # lint: exempt[paired-resource] ownership transfer: the gathered build copy releases on close()
             self._node.consume(host=delta)
         else:
             self._node.release(host=-delta)
@@ -301,6 +302,7 @@ class HybridJoinBuild:
         if self._node is not None:
             # may fire the quota chain, including our own spill action,
             # which skips the active partition
+            # lint: exempt[paired-resource] ownership transfer: resident-partition bytes release on evict/spill/close
             self._node.consume(device=nbytes)
         try:
             # partition upload (first touch / post-spill re-upload) is
@@ -515,6 +517,7 @@ class HybridJoinBuild:
 # -- partitioned aggregation -------------------------------------------------
 
 
+# lint: exempt[memtrack-alloc] one int64 code lane over a chunk the caller already bills (the retry path's input)
 def group_key_hashes(group_exprs, chunk) -> np.ndarray:
     """Host-side row hash over the group-key tuple (NULLs keyed
     distinctly, same contract as the device kernel's hash). Varlen lanes
@@ -536,6 +539,7 @@ def group_key_hashes(group_exprs, chunk) -> np.ndarray:
     return host_hash_keys(lanes, n, SEED)
 
 
+# lint: exempt[memtrack-alloc] merged partial lanes: one row per LIVE GROUP, bounded by the agg state the caller already bills via approx_bytes
 def concat_group_results(results: list[GroupResult], aggs) -> GroupResult:
     """Merge per-partition GroupResults whose key sets are DISJOINT (the
     partition id is a function of the full key hash) by concatenation."""

@@ -68,6 +68,7 @@ def _plane_max(mesh, xs) -> list:
     return xs if len(xs) == 1 else devplane.pmax(xs, mesh)
 
 
+# lint: exempt[dtype-discipline] group codes carry exact int64 key values (scaled decimals / epoch-micros exceed float range)
 def _direct_tables(mesh, xps, group_exprs, cols, ln, masks, C) -> list:
     """Per-shard direct-indexed group tables -> [(uniq[C], inv int32,
     tot)]: the strides are plane-wide maxima, so every shard shares one
@@ -99,6 +100,7 @@ def _direct_tables(mesh, xps, group_exprs, cols, ln, masks, C) -> list:
     return out
 
 
+# lint: exempt[dtype-discipline] exact int64 key codes + float64 span product (span overflow check must not round at 2^53)
 def _cond_tables(mesh, xps, group_exprs, cols, ln, masks, hs, C) -> list:
     """Per-shard runtime-selected group tables (hashagg._cond_group_table)
     with the keys' minima, maxima and spans taken over the whole plane,
@@ -156,6 +158,7 @@ def _cond_tables(mesh, xps, group_exprs, cols, ln, masks, hs, C) -> list:
     return out
 
 
+# lint: exempt[dtype-discipline] int64 COUNT lane: exact past 2^53 rows, matches the agg-state stacking dtype
 def _local_lanes(xp, cols, mask, ln, offs, inv, h2, aggs, C, row_ids):
     """One shard's lanes: one _SegBatch for the header lanes (count,
     check-hash min/max, representative row) and every aggregate.
@@ -217,6 +220,7 @@ def group_merge_program(mesh, cols, masks, ln, offs, group_exprs, aggs, C,
         # dense dict codes index slots directly: no sort, no hash, no
         # collisions (h2 lanes are zeros so the check trivially passes)
         tables = _direct_tables(mesh, xps, group_exprs, cols, ln, masks, C)
+        # lint: exempt[dtype-discipline] h2 lanes ride the int64 hash dtype (splitmix64 bit patterns)
         h2s = [torch.zeros(ln, dtype=torch.int64, device=m.device)
                for m in masks]
     else:
@@ -294,6 +298,7 @@ def group_merge_program(mesh, cols, masks, ln, offs, group_exprs, aggs, C,
                 r = segsum.segment_sum(g, minv, C)
             else:
                 if minv64 is None:
+                    # lint: exempt[dtype-discipline] scatter_reduce (the MIN/MAX merge) takes int64 index tensors
                     minv64 = minv.to(torch.int64)
                 r = _segment_minmax(g, minv64, C, op)
             for j, k in enumerate(idxs):
@@ -397,6 +402,7 @@ class MeshAggKernel(MeshKernelBase):
         masks, offs = [], []
         for i, dev in enumerate(self.mesh.devices.flat):
             off = i * ln
+            # lint: exempt[dtype-discipline] global row offsets are exact int64 (shard base can exceed int32 on big superchunks)
             alive = (off + torch.arange(ln, dtype=torch.int64,
                                         device=dev)) < nrows
             mask = runtime.filter_mask_xp(tnp.on(dev), self.filter_expr,

@@ -47,6 +47,7 @@ class ShuffleOverflowError(Exception):
     beyond the retry budget (extreme hash skew)."""
 
 
+# lint: exempt[dtype-discipline] route lanes ride the int64 hash dtype (dead-row sentinel = ndev)
 def _bucketize(ndev: int, cap: int, dst, keep, lanes, fills):
     """Scatter each row's lanes into its destination bucket.
     -> ([ndev*cap] buffers per lane, local max bucket fill)."""
@@ -98,6 +99,7 @@ class MeshShuffleJoinKernel:
         ndev = self.ndev
         dev = keys[0][0].device
         offs = i * shard_len
+        # lint: exempt[dtype-discipline] global row offsets are exact int64 (shard base can exceed int32)
         gidx = offs + torch.arange(shard_len, dtype=torch.int64, device=dev)
         valid = gidx < n
         for _d, v in keys:
@@ -161,6 +163,7 @@ class MeshShuffleJoinKernel:
         return runtime.shard_put(lanes, n, shard_len, self.mesh)
 
     @staticmethod
+    # lint: exempt[dtype-discipline] the one readback buffer packs every shard's lanes as int64 words (one copy back)
     def finalize(pending):
         """One batched device->host readback of a list of per-shard
         tensors (the kernel's output boundary)."""
@@ -219,7 +222,7 @@ class MeshShuffleJoinKernel:
                 continue
             pairs = self.finalize([torch.stack((o[0], o[1]))[:, o[2]]
                                    for o in outs])
-            li = np.concatenate([p[0] for p in pairs])
-            ri = np.concatenate([p[1] for p in pairs])
+            # lint: exempt[memtrack-alloc] the matcher's output boundary: one index pair per joined row, the rows the executor's emit bills as it gathers them
+            li, ri = (np.concatenate([p[k] for p in pairs]) for k in (0, 1))
             return li.astype(np.int64), ri.astype(np.int64)
         raise ShuffleOverflowError("shuffle join retry budget exhausted")

@@ -300,6 +300,7 @@ def bucket_size(n: int) -> int:
     return b
 
 
+# lint: exempt[memtrack-alloc] callers bill padded superchunk staging at dispatch (superchunk_batches tracker)
 def pad_column(data: np.ndarray, valid: np.ndarray, size: int):
     n = len(data)
     if n == size:
@@ -343,6 +344,7 @@ def put_lanes(lanes, n: int, size: int, device) -> list:
     data_bytes = 8 * size * k
     host = torch.empty(data_bytes + size * k, dtype=torch.uint8,
                        pin_memory=device.type == "cuda")
+    # lint: exempt[device-sync] `host` is the pinned HOST staging buffer: .numpy() views its bytes, no device copy
     hb = host.numpy()
     for i, (d, v) in enumerate(lanes):
         dv = hb[8 * size * i:8 * size * (i + 1)].view(dtypes[i])

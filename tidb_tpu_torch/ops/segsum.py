@@ -26,6 +26,7 @@ and loaded with ctypes; importing this module builds nothing.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import re
 import subprocess
@@ -54,6 +55,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "segsum.cu"
 BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libsegsum.so"
+# the reuse key of the build in LIBRARY (build_key())
+STAMP = BUILD_DIR / "libsegsum.key"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -181,14 +184,24 @@ def build_command(out: Path = LIBRARY) -> list[str]:
     return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(SOURCE)]
 
 
+def build_key() -> str:
+    """The reuse key of a build: a digest of the kernel's source and of
+    nvcc's flags, so a library built from another source or with other
+    flags is never loaded as this one."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def build(force: bool = False) -> Path:
     """Compile csrc/segsum.cu into _build/libsegsum.so unless a build
-    newer than the source is there; keeps ptxas's report in `build_log`.
-    Writes to a temporary name first, so a concurrent reader never loads
-    a half-written library."""
+    under the same key (build_key()) is there; keeps ptxas's report in
+    `build_log`. Writes to temporary names first, so a concurrent reader
+    never loads a half-written library."""
     global build_log
-    if not force and LIBRARY.exists() and \
-            LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
+    key = build_key()
+    if not force and LIBRARY.exists() and STAMP.exists() and \
+            STAMP.read_text() == key:
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".libsegsum.{os.getpid()}.so"
@@ -196,6 +209,9 @@ def build(force: bool = False) -> Path:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, LIBRARY)
+    stamp = BUILD_DIR / f".libsegsum.{os.getpid()}.key"
+    stamp.write_text(key)
+    os.replace(stamp, STAMP)
     build_log = res.stdout + res.stderr
     return LIBRARY
 
@@ -313,6 +329,7 @@ def segment_sum_plain(values: torch.Tensor, ids: torch.Tensor,
     if valid is not None:
         mask = valid if valid.dim() == v.dim() else valid[:, None]
         v = torch.where(mask, v, zero)
+    # lint: exempt[dtype-discipline] the plain version, not the kernel: its ids widen to torch's default int64 index dtype, so the kernel's int32 path is held against an independent one
     ids = ids.long()
     keep = (ids >= 0) & (ids < num_segments)
     v = torch.where(keep if v.dim() == 1 else keep[:, None], v, zero)

@@ -63,6 +63,7 @@ class SegmentAggKernel:
         _validate_device_exprs(None, self.group_exprs, self.aggs)
         self.used = _columns_used(None, self.group_exprs, self.aggs)
 
+    # lint: exempt[dtype-discipline] int64 segment counts/ids: exact lane semantics shared with hashagg's agg-state stacking
     def _kernel(self, cols, nrows):
         xp = tnp.on(self.device)
         n = next(c for c in cols if c is not None)[0].shape[0]
@@ -144,7 +145,7 @@ def segment_kernel_for(group_exprs, aggs, device=None) -> SegmentAggKernel:
     exprs are not device-safe."""
     device = runtime.resolve_device(device)
 
-    from tidb_tpu_torch import profiler
+    from tidb_tpu_torch import devplane, profiler
     made = []
 
     def make():
@@ -158,7 +159,8 @@ def segment_kernel_for(group_exprs, aggs, device=None) -> SegmentAggKernel:
         profiler.note_construct(prof, reuse=False)
         k._profile = prof
         return k
-    k = _SEG_KERNELS.get_or_create((fp, str(device)), make)
+    key = (fp, str(device), devplane.mesh_fingerprint(process=True))
+    k = _SEG_KERNELS.get_or_create(key, make)
     prof = profiler.profile("streamagg", fp)
     profiler.note_construct(prof, reuse=not made)
     k._profile = prof

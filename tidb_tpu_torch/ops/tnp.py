@@ -117,6 +117,7 @@ class Namespace:
         elif ta != tb:
             t, s = (a, b) if ta else (b, a)
             if isinstance(s, float) and not t.dtype.is_floating_point:
+                # lint: exempt[dtype-discipline] SQL's int/real mix promotes to DOUBLE: float64 is the REAL type's exact lane, not a device choice
                 t = t.to(torch.float64)
                 a, b = (t, s) if ta else (s, t)
         return torch.where(cond, a, b)

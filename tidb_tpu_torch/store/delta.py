@@ -285,8 +285,7 @@ class DeltaStore:
             self._staged[0] += add_bytes
             self._staged[1] += add_rows
         if add_bytes:
-            # staged journal bytes: released when the merge truncates (or
-            # close/shed); a GC finalizer backstops dead stores
+            # lint: exempt[paired-resource] staged journal bytes: released when the merge truncates (or close/shed); a GC finalizer backstops dead stores
             tracker().consume(host=add_bytes)
         if add_rows:
             metrics.gauge(metrics.DELTA_ROWS, _note_rows(add_rows))

@@ -161,6 +161,7 @@ def _to_device(host_arrays, device):
     total = sum(sizes)
     host = torch.empty(max(total, 1), dtype=torch.uint8,
                        pin_memory=device.type == "cuda")
+    # lint: exempt[device-sync] `host` is the pinned HOST staging buffer: .numpy() views its bytes, no device copy
     hb = host.numpy()
     views, off = [], 0
     for a, nb in zip(host_arrays, sizes):
@@ -432,8 +433,7 @@ class DeviceCache:
                     break
                 self._drop_locked(old)
                 metrics.counter(metrics.HBM_CACHE_EVICTIONS)
-        # ownership transfer: residency releases on evict/shed; a GC
-        # finalizer backstops dead caches
+        # lint: exempt[paired-resource] ownership transfer: residency releases on evict/shed; a GC finalizer backstops dead caches
         tracker().consume(device=nbytes)
         # evictions released under the lock tally in _pending_release;
         # settle them against the shared tracker outside the lock

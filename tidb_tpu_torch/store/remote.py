@@ -538,9 +538,7 @@ class StorageServer:
                         # local root and ship the finished tree back for
                         # the client to graft into its statement trace
                         from tidb_tpu_torch import trace
-                        # the root's name is wire data ("storage:<method>"):
-                        # such roots graft via attach_remote and are
-                        # retained only origin-stamped
+                        # lint: exempt[trace-names] cross-process storage root: the method name is wire data; these roots graft via attach_remote and retain only origin-stamped
                         root = trace.begin(f"storage:{method}")
                         origin = _adopt_origin(root, flags)
                         try:

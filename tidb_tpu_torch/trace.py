@@ -409,6 +409,7 @@ class _Ring:
 
     def append(self, rec: dict) -> None:
         node = self._tracker()
+        # lint: exempt[paired-resource] ownership transfer: ring bytes release on evict (below) / shed / reset
         node.consume(host=rec["cost"])
         evicted = 0
         with self._mu:
