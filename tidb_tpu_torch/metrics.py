@@ -36,7 +36,6 @@ __all__ = ["counter", "histogram", "gauge", "expose", "snapshot",
            "DEVICE_QUARANTINES", "TRACES",
            "CLUSTER_SCRAPES", "MEMBER_START_TIME",
            "DEVICE_UTILIZATION", "HBM_OCCUPANCY", "CHIP_UTILIZATION",
-           "COMPILE_CACHE_HITS", "COMPILE_CACHE_MISSES",
            "KERNEL_COMPILE_SECONDS", "KERNEL_DISPATCHES"]
 
 _lock = threading.Lock()
@@ -280,15 +279,10 @@ HBM_OCCUPANCY = "tidb_tpu_hbm_occupancy_ratio"
 # (bounded by the plane's device count): the scheduler's placement
 # signal surfaced as a series, and the serve bench's balance figure
 CHIP_UTILIZATION = "tidb_tpu_chip_utilization_ratio"
-# kernel profiling plane (the profiler + compile cache):
-# persistent XLA compile-cache hit/miss counts promoted from BENCH-json-
-# only to first-class families, per-family kernel first-call compile
-# wall time (trace+compile+load, attributed hit|miss|cached by diffing
-# the persistent-cache counters around it), and per-family dispatch
-# counts. Labeled {family} only (hashagg|scalaragg|streamagg|fragment|
-# mesh|plane — a bounded vocabulary, per the cardinality rule)
-COMPILE_CACHE_HITS = "tidb_tpu_compile_cache_hits_total"
-COMPILE_CACHE_MISSES = "tidb_tpu_compile_cache_misses_total"
+# kernel profiling plane (profiler.py): per-family kernel first-call
+# wall time (trace+compile+load) and per-family dispatch counts. Labeled
+# {family} only (hashagg|scalaragg|streamagg|fragment|mesh|plane — a
+# bounded vocabulary, per the cardinality rule)
 KERNEL_COMPILE_SECONDS = "tidb_tpu_kernel_compile_seconds"
 KERNEL_DISPATCHES = "tidb_tpu_kernel_dispatch_total"
 
@@ -398,10 +392,6 @@ _HELP = {
     CHIP_UTILIZATION:
         "Per-chip scheduler-slot busy time per wall second over the "
         "last history sampler interval, labeled by plane chip index.",
-    COMPILE_CACHE_HITS:
-        "Persistent XLA compile-cache hits (jax.monitoring events).",
-    COMPILE_CACHE_MISSES:
-        "Persistent XLA compile-cache misses (compiles paid).",
     KERNEL_COMPILE_SECONDS:
         "Kernel first-call wall time (trace+compile+cache load), "
         "by kernel family.",

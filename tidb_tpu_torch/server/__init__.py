@@ -12,7 +12,12 @@ unless the storage was made on another device); this layer only speaks
 the protocol. The handshake verifies mysql_native_password credentials
 against the mysql.user grant table (privilege.py; ref: privileges.go
 ConnectionVerification), bootstrapping the system catalog on first
-server start. ERR packets carry errcode.classify's code and SQLSTATE."""
+server start. ERR packets carry errcode.classify's code and SQLSTATE.
+
+The commands that return a result set (COM_QUERY, COM_STMT_EXECUTE) run
+in a trace command scope: their first statement root starts when the
+payload was read, and the response's write is the `wire.write` span of
+their last root when that root was retained (trace.py)."""
 
 from __future__ import annotations
 
@@ -20,8 +25,10 @@ import os
 import socket
 import struct
 import threading
+import time
 from decimal import Decimal
 
+from tidb_tpu_torch import trace
 from tidb_tpu_torch.server.packet import (PacketIO, lenenc_bytes, lenenc_int,
                                     lenenc_str, read_lenenc_bytes,
                                     read_nullterm)
@@ -66,6 +73,9 @@ COM_STMT_PREPARE = 0x16
 COM_STMT_EXECUTE = 0x17
 COM_STMT_CLOSE = 0x19
 COM_STMT_RESET = 0x1A
+# the commands that run statements and answer with a result set (or
+# OK / ERR): each runs in a trace command scope
+_STATEMENT_COMMANDS = (COM_QUERY, COM_STMT_EXECUTE)
 
 
 class Server:
@@ -201,6 +211,9 @@ class ClientConn:
         self._close_mu = threading.Lock()
         self._param_counts: dict[int, int] = {}   # stmt_id -> num params
         self._param_types: dict[int, list] = {}   # stmt_id -> bound types
+        # the response being timed: (wire.write span, thread CPU ns,
+        # packets and bytes sent) at its start
+        self._wire: tuple | None = None
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -221,11 +234,15 @@ class ClientConn:
                 payload = self.pkt.read_packet()
             except ConnectionError:
                 return
+            read_ns = time.perf_counter_ns()
             if not payload:
                 continue
             cmd, data = payload[0], payload[1:]
             if cmd == COM_QUIT:
                 return
+            scoped = cmd in _STATEMENT_COMMANDS
+            if scoped:
+                trace.command_begin(read_ns)
             try:
                 self._dispatch(cmd, data)
             except Exception as e:  # noqa: BLE001 - never kill the conn
@@ -234,7 +251,32 @@ class ClientConn:
                 code, state, msg = classify(e)
                 if code == ER_UNKNOWN and not isinstance(e, SQLError):
                     msg = f"internal error: {msg}"
+                self._respond()
                 self._write_err(msg, code=code, sqlstate=state)
+            finally:
+                if scoped:
+                    self._end_command()
+
+    def _respond(self) -> None:
+        """The command's response starts: when its last statement root
+        was retained, time the write as that root's wire.write."""
+        if self._wire is None and trace.command_retained():
+            self._wire = (trace.Span("wire.write"), time.thread_time_ns(),
+                          self.pkt.sent_packets, self.pkt.sent_bytes)
+
+    def _end_command(self) -> None:
+        """Close the command scope, ending wire.write after the last
+        sendall."""
+        wire, self._wire = self._wire, None
+        if wire is None:
+            trace.command_end()
+            return
+        span, cpu0, packets0, bytes0 = wire
+        span.end_ns = time.perf_counter_ns()
+        span.tags = {"packets": self.pkt.sent_packets - packets0,
+                     "bytes": self.pkt.sent_bytes - bytes0,
+                     "cpu_us": (time.thread_time_ns() - cpu0) // 1000}
+        trace.command_end(span)
 
     def shutdown(self) -> None:
         """Unblock the connection thread's read; safe from any thread."""
@@ -345,6 +387,7 @@ class ClientConn:
 
     def _handle_query(self, sql: str) -> None:
         results = self.session.execute(sql)
+        self._respond()
         # one response per query packet: the first resultset wins, else an
         # OK carrying the last affected-rows count
         rs = next((r for r in results if isinstance(r, ResultSet)), None)
@@ -390,6 +433,7 @@ class ClientConn:
             return
         params = self._decode_params(data, sid, nparams)
         results = self.session.execute_prepared(sid, params)
+        self._respond()
         rs = results if isinstance(results, ResultSet) else None
         if rs is None:
             self._write_ok(results if isinstance(results, int) else 0, 0)

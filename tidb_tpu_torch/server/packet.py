@@ -14,11 +14,14 @@ MAX_PAYLOAD = 0xFFFFFF
 
 
 class PacketIO:
-    """Framed packet reader/writer over a socket with sequence tracking."""
+    """Framed packet reader/writer over a socket with sequence tracking
+    and running counts of the packets and bytes sent."""
 
     def __init__(self, sock: socket.socket):
         self.sock = sock
         self.seq = 0
+        self.sent_packets = 0
+        self.sent_bytes = 0
 
     def _recv_exact(self, n: int) -> bytes:
         buf = b""
@@ -45,6 +48,8 @@ class PacketIO:
             chunk = payload[off:off + MAX_PAYLOAD]
             header = struct.pack("<I", len(chunk))[:3] + bytes([self.seq])
             self.sock.sendall(header + chunk)
+            self.sent_packets += 1
+            self.sent_bytes += 4 + len(chunk)
             self.seq = (self.seq + 1) & 0xFF
             off += len(chunk)
             if len(chunk) < MAX_PAYLOAD:

@@ -18,7 +18,16 @@ deterministic sampling (`tidb_tpu_trace_sample`), threshold capture
 (`tidb_tpu_slow_trace_ms`; the digest summary carries the trace id) and
 the TRACE statement, which forces retention (`finish_statement`). The
 ring is billed to a `trace-ring` memtrack server node with a registered
-shed action, so admission shedding and `/shed` reclaim it.
+shed action, so admission shedding and `/shed` reclaim it; its bound is
+that node's byte budget (16 MiB: about 2,850 trees of a warm TPC-H
+Q1). Spans time on the monotonic clock (`perf_counter_ns`); each
+retained record carries `wall_offset_ns`, the Unix-ns minus monotonic-ns
+offset read at retention, which puts its spans on torch.profiler's clock.
+
+The wire server's commands that return a result set open a command
+scope (`command_begin` / `command_end`): the command's first statement
+root starts when the server read its payload, and the response's write
+hangs as `wire.write` under its last root, whose end moves with it.
 
 Across processes (the fleet, store/remote.py): `origin()` is the
 forward context a traced store RPC carries, `attach_remote` grafts the
@@ -40,6 +49,7 @@ __all__ = ["Span", "SPAN_NAMES", "begin", "end", "span", "event",
            "phase_ns", "log_tree", "ensure_id", "finish_statement",
            "tree", "validate", "phases_of", "ring_snapshot",
            "ring_records", "ring_get", "ring_stats", "to_chrome",
+           "command_begin", "command_retained", "command_end",
            "reset_for_tests"]
 
 log = logging.getLogger("tidb_tpu_torch.trace")
@@ -78,11 +88,17 @@ SPAN_NAMES = {
     # bounded-timeout sweep over live members' status ports serving a
     # cluster_* memtable or a /fleet/* endpoint
     "cluster.fetch": "fan-out fetch over live members' status ports",
+    # port-only (server/__init__.py): the response to a command that
+    # returns a result set, from its first packet to its last sendall;
+    # tags packets, bytes and cpu_us (the thread's CPU time in it)
+    "wire.write": "the wire server's write of one command's response",
 }
 
-# retention bounds of the server-scope trace ring: records and an
-# estimated-bytes budget, billed to the trace-ring memtrack node
-_RING_CAP = 256
+# retention bounds of the server-scope trace ring: the estimated-bytes
+# budget, billed to the trace-ring memtrack node, binds for real
+# statements (a warm TPC-H Q1's tree of 21 spans bills 5,888 B); the
+# record cap binds only for trees of a span or two
+_RING_CAP = 4096
 _RING_BYTES_CAP = 16 << 20
 _SPAN_EST_BYTES = 256          # rough per-span record cost estimate
 
@@ -423,6 +439,17 @@ class _Ring:
         if evicted:
             node.release(host=evicted)
 
+    def amend(self, rec: dict, span: Span) -> None:
+        """Hang `span` under a retained record's root after retention
+        (the command's wire.write, pre-billed at retention): the root
+        ends no earlier than it, and the record follows the root."""
+        root = rec["root"]
+        root.children.append(span)
+        root.end_ns = max(root.end_ns, span.end_ns)
+        with self._mu:
+            rec["duration_ns"] = root.duration_ns
+            rec["span_count"] += 1
+
     def shed(self) -> int:
         """Drop every retained record (the memtrack shed action).
         -> bytes freed."""
@@ -475,7 +502,15 @@ def finish_statement(root: Span, sql: str, error: str | None = None,
     the record's origin_trace_id/origin_member then name the SQL
     statement that caused this store-plane root instead of the local
     identity, the join key cluster_statement_traces and /fleet/trace
-    search on."""
+    search on. Inside a wire command (command_begin), the command's
+    first root is back-dated to the read of its payload, and the last
+    root's record is kept for the response's wire.write."""
+    cmd = getattr(_tl, "cmd", None)
+    if cmd is not None:
+        if cmd.first:
+            root.start_ns = min(root.start_ns, cmd.read_ns)
+            cmd.first = False
+        cmd.rec = None
     if root.forced:
         reason = "forced"
     elif root.sampled:
@@ -486,15 +521,16 @@ def finish_statement(root: Span, sql: str, error: str | None = None,
         if slow_ms <= 0 or root.duration_ns < slow_ms * 1_000_000:
             return None
         reason = "slow"
-    dur_ns = root.duration_ns
     from tidb_tpu_torch import metrics, perfschema
     tid = ensure_id(root)
+    offset = _wall_offset_ns()
     rec = {
         "trace_id": tid,
         "sql": sql[:512],
         "digest": perfschema.sql_digest(sql)[0],
-        "start_unix": time.time() - dur_ns / 1e9,
-        "duration_ns": dur_ns,
+        "start_unix": (root.start_ns + offset) / 1e9,
+        "duration_ns": root.duration_ns,
+        "wall_offset_ns": offset,
         "reason": reason,
         "error": error and error[:256],
         "span_count": _span_count(root),
@@ -503,10 +539,70 @@ def finish_statement(root: Span, sql: str, error: str | None = None,
         else _member().member_id(),
         "root": root,
     }
-    rec["cost"] = rec["span_count"] * _SPAN_EST_BYTES + len(rec["sql"])
+    # a command's root is billed for the wire.write still to come
+    spans = rec["span_count"] + (cmd is not None)
+    rec["cost"] = spans * _SPAN_EST_BYTES + len(rec["sql"])
     _RING.append(rec)
+    if cmd is not None:
+        cmd.rec = rec
     metrics.counter(metrics.TRACES, {"reason": reason})
     return tid
+
+
+def _wall_offset_ns() -> int:
+    """Unix ns minus perf_counter_ns, now: of three paired reads
+    (monotonic, Unix, monotonic), the tightest pair's, against its
+    midpoint. Adding it to a span's start_ns / end_ns gives the Unix-ns
+    clock that torch.profiler stamps device activity with."""
+    best_gap = best = None
+    for _ in range(3):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best_gap is None or b - a < best_gap:
+            best_gap, best = b - a, wall - (a + b) // 2
+    return best
+
+
+# -- the wire command scope --------------------------------------------------
+
+
+class _Command:
+    """One wire command that returns a result set, on its connection's
+    thread: when its payload was read, whether a statement root has
+    finished in it yet, and the ring record of its last finished root
+    when that root was retained."""
+
+    __slots__ = ("read_ns", "first", "rec")
+
+    def __init__(self, read_ns: int):
+        self.read_ns = read_ns
+        self.first = True
+        self.rec = None
+
+
+def command_begin(read_ns: int) -> None:
+    """Open the command scope (server/__init__.py, COM_QUERY and
+    COM_STMT_EXECUTE): `read_ns` is the perf_counter_ns at which the
+    command's payload was read."""
+    _tl.cmd = _Command(read_ns)
+
+
+def command_retained() -> bool:
+    """True when the command's last finished statement root is in the
+    ring, so its response is worth a wire.write span."""
+    cmd = getattr(_tl, "cmd", None)
+    return cmd is not None and cmd.rec is not None
+
+
+def command_end(write: Span | None = None) -> None:
+    """Close the command scope; `write` (the response's finished
+    wire.write span) hangs under the retained last root, whose end and
+    ring record move to its end."""
+    cmd = getattr(_tl, "cmd", None)
+    _tl.cmd = None
+    if write is not None and cmd is not None and cmd.rec is not None:
+        _RING.amend(cmd.rec, write)
 
 
 def ring_snapshot() -> list[dict]:
@@ -663,4 +759,6 @@ def to_chrome(rec: dict) -> dict:
             "otherData": {"trace_id": rec["trace_id"],
                           "sql": rec["sql"],
                           "digest": rec["digest"],
-                          "reason": rec["reason"]}}
+                          "reason": rec["reason"],
+                          "wall_offset_ns": rec["wall_offset_ns"],
+                          "start_unix_ns": base + rec["wall_offset_ns"]}}
